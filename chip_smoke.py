@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass:
-  1. build the kernels from src/repro_torch/csrc/ with nvcc and print the
-     card's name and power limit;
+  1. build the kernels from src/repro_torch/csrc/ with nvcc (one process
+     per source, all at once) and print the card's name and power limit;
   2. K1 (hot gather) against its plain version on the card, bit for bit:
      the quickstart's PageRank (N,) f32 and step-5 (N, 8) f32, (N, 130)
      bf16, PageRank's (N,) f32 on the real-size graph, and the -1 / >= N /
@@ -16,7 +16,21 @@ Phases, each of which must pass:
   4. the quickstart pipeline (examples/quickstart_torch.main("cuda")) with
      PageRank through K1 and the paper's orderings;
   5. PageRank at real size (``lj`` at scale 22: 4.19M vertices) through K1
-     against PageRank with the plain gather on the card, six runs of each.
+     against PageRank with the plain gather on the card, six runs of each;
+  6. K3 (hot embedding bag) against its plain version, bit for bit, at the
+     JAX package's sweep shapes, all-masked, and MIND's serve_p99 and
+     serve_bulk (Zipf 1.1 ids, 0.9 mask, the L2-sized hot prefix); then
+     K3's own path, ops.hot_bag at serve_bulk, against bag_ref (1e-5);
+  7. MIND at full width (2^21 x 64 f32 items): serve_scores through K1
+     against the plain route at serve_p99, and retrieval_scores at
+     retrieval_cand (2^18 hot rows, overflowing cold refs) against the
+     same function on the CPU (1e-5);
+  8. MIND served through the GRASP embedding cache (run_recsys_stream,
+     8,192 requests, batches of 512): GRASP's hit rate beats unpinned RRPV
+     and LRU, the first batch's scores match the dense forward (1e-5), K1
+     runs once per lookup with hot references (never unpinned); then one
+     run with measured service time for requests/s, e2e p50/p99, the
+     lookup/forward split and peak device memory.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches.
@@ -40,6 +54,12 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 REAL_SCALE = 22               # lj: 4.19M vertices vs LiveJournal's 5M (paper Table V)
 PR_ITERS = 20
+# MIND through the GRASP cache: 8,192 requests in batches of 512, a 128 MiB
+# cache (a quarter of the 512 MiB table); retrieval's table split at 2^18 rows
+MIND_REQUESTS = 8192
+MIND_MAX_BATCH = 512
+MIND_CACHE_BYTES = 128 << 20
+RETRIEVAL_HOT_ROWS = 1 << 18
 
 
 def card_line() -> str:
@@ -47,6 +67,18 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout
     return out.strip().splitlines()[0]
+
+
+def build_all() -> None:
+    """Build every kernel source at once, one nvcc process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import _build
+
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(names)) as pool:
+        for lib in pool.map(_build.build, names):
+            print(f"built {lib.name}")
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -182,12 +214,13 @@ def k1_numbers(path: str, mix: list, counts: list[int], err: float) -> dict:
     nbytes, shapes = 0.0, []
     for (prop, h, idx), k in zip(mix, counts):
         hot, w = prop[:h].contiguous(), k / total
+        lib_idx = idx.clamp(min=0)  # the library gather takes no -1 (cache misses)
         e, d, s = idx.shape[0], prop.shape[1], prop.element_size()
         hits = idx[(idx >= 0) & (idx < h)]
         nbytes += w * (e * 4 + e * d * s + torch.unique(hits).numel() * d * s)
         res["ms"] += w * time_ms(lambda: hot_gather_hot_part(hot, idx))
         res["plain_ms"] += w * time_ms(lambda: ref.hot_gather_ref(hot, idx))
-        res["library_ms"] += w * time_ms(lambda: torch.index_select(prop, 0, idx))
+        res["library_ms"] += w * time_ms(lambda: torch.index_select(prop, 0, lib_idx))
         res["op_ms"] += w * time_ms(lambda: ops.hot_gather(prop, idx, hot_size=h))
         shapes.append(f"{k} x hot ({h}, {d}) of N={prop.shape[0]} {str(prop.dtype)[6:]}, "
                       f"E={e}, {hits.numel() / e:.4f} of edges hot")
@@ -349,20 +382,330 @@ def run_real_pagerank(dev, g2) -> int:
     return launches["hot"].pop()
 
 
+def check_k3(dev, items) -> dict:
+    """Phase 6: K3 against its plain version, bit for bit, then its own
+    path (ops.hot_bag) at serve_bulk against bag_ref. Returns K3's entry."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import RECSYS_SHAPES, get_arch
+    from repro_torch.core.plan import default_budget_bytes, entries_for_budget
+    from repro_torch.data.pipeline import zipf_ids
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
+
+    cfg = get_arch("mind")
+    rng = np.random.default_rng(2)
+    hot_size = entries_for_budget(default_budget_bytes(), cfg.embed_dim * 4,
+                                  max_entries=cfg.n_items)
+    print(f"K3 hot prefix: {hot_size} rows of d={cfg.embed_dim} f32 (L2 "
+          f"{default_budget_bytes()} bytes)")
+    cases = []
+    for v, d, b, h, hot in [(2000, 16, 512, 8, 256), (5000, 64, 300, 12, 512),
+                            (1000, 100, 64, 4, 1000)]:   # tests/test_kernels.py sweep
+        table = torch.as_tensor(rng.standard_normal((v, d)), dtype=torch.float32).to(dev)
+        ids = rng.integers(0, v, (b, h))
+        ids = np.where(rng.random((b, h)) < 0.8, ids % hot, ids).astype(np.int32)
+        mask = rng.random((b, h)) < 0.9
+        cases.append((f"sweep V={v} d={d} B={b} H={h} hot={hot}", table[:hot],
+                      torch.as_tensor(ids).to(dev), torch.as_tensor(mask).to(dev)))
+        if v == 2000:
+            cases.append(("all masked", table[:hot], cases[-1][2],
+                          torch.zeros_like(cases[-1][3])))
+    for name in ("serve_p99", "serve_bulk"):
+        # Zipf-1.1 histories with a 0.9 keep mask, as recsys_batch draws them
+        shape = (RECSYS_SHAPES[name].batch, cfg.hist_len)
+        ids = torch.as_tensor(zipf_ids(rng, shape, cfg.n_items, a=1.1)).to(dev)
+        mask = torch.as_tensor(rng.random(shape) < 0.9).to(dev)
+        cases.append((f"MIND {name}", items[:hot_size], ids, mask))
+    err = 0.0
+    for label, hot, ids, mask in cases:
+        out = hot_bag_hot_part(hot, ids, mask)
+        plain = ref.hot_bag_ref(hot, ids, mask)
+        torch.cuda.synchronize()
+        if not same_bits(out, plain):
+            fail(f"K3 {label}: differs from its plain version")
+        if label == "all masked" and float(out.abs().max()) != 0.0:
+            fail("K3 all masked: not exact zeros")
+        err = max(err, float((out - plain).abs().max()))
+        print(f"K3 {label}: B={ids.shape[0]} H={ids.shape[1]} d={hot.shape[1]} "
+              f"hot={hot.shape[0]} bit-identical")
+
+    # K3's own path: the fused bag with its cold fixup at serve_bulk (the last case)
+    hot_bag_hot_part.launches = 0
+    got = ops.hot_bag(items, ids, mask, hot_size=hot_size)
+    launches = hot_bag_hot_part.launches
+    want = ref.bag_ref(items, ids, mask)
+    path_err = float((got - want).abs().max())
+    close = torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+    del want
+    print(f"K3 path (ops.hot_bag at serve_bulk) vs bag_ref: max abs err {path_err:.3e}, "
+          f"launches {launches}")
+    if launches < 1:
+        fail("K3 path: ops.hot_bag did not launch K3")
+    if not close:
+        fail(f"K3 path: ops.hot_bag differs from bag_ref by {path_err:.3e}")
+
+    hot = items[:hot_size]
+    hit = mask & (ids >= 0) & (ids < hot_size)
+    b, hlen = ids.shape
+    d = hot.shape[1]
+    rows = torch.unique(ids[hit]).numel()
+    refs = int(hit.sum())
+    bound_ms, bound_by = bound(b * hlen * 5 + b * d * 4 + rows * d * 4, refs * d)
+    lib_ids = ids.clamp(0, hot_size - 1)
+    weights = hit.float()
+    res = dict(
+        ms=time_ms(lambda: hot_bag_hot_part(hot, ids, mask)),
+        plain_ms=time_ms(lambda: ref.hot_bag_ref(hot, ids, mask), reps=5, warmup=1),
+        library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
+            lib_ids, hot, mode="sum", per_sample_weights=weights)),
+        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, launches=launches,
+        shape=f"serve_bulk: {b} bags x {hlen}, hot ({hot_size}, {d}) f32 of "
+              f"{items.shape[0]} rows, {refs} hot references to {rows} rows "
+              f"({refs / (b * hlen):.4f} of positions)",
+    )
+    op_ms = time_ms(lambda: ops.hot_bag(items, ids, mask, hot_size=hot_size), reps=5, warmup=1)
+    print(f"K3 timing at {res['shape']}: kernel {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, embedding_bag {res['library_ms']:.4f} ms, "
+          f"ops.hot_bag (K3 + cold fixup) {op_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"row reads {refs * d * 4 / 1e9:.3f} GB")
+    return res
+
+
+def check_k1_exact(label: str, hot, idx) -> float:
+    """K1 against its plain version, bit for bit, at one launch's shapes."""
+    import torch
+
+    from repro_torch.kernels.hot_gather import ref
+    from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+
+    out = hot_gather_hot_part(hot, idx)
+    plain = ref.hot_gather_ref(hot, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain):
+        fail(f"K1 {label}: differs from its plain version")
+    print(f"K1 {label}: H={hot.shape[0]} d={hot.shape[1]} E={idx.shape[0]} bit-identical")
+    return float((out - plain).abs().max())
+
+
+def check_mind_dense(dev, params) -> tuple[list, int, float]:
+    """Phase 7: serve_scores through K1 against the plain route at
+    serve_p99; retrieval_scores at retrieval_cand against the CPU. Returns
+    K1's launch mix on the serve_scores path, its launches and its error."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import RECSYS_SHAPES, get_arch
+    from repro_torch.core.plan import default_budget_bytes, entries_for_budget
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+    from repro_torch.nn import recsys
+
+    cfg = get_arch("mind")
+    batch = recsys_batch(np.random.default_rng(3), cfg, RECSYS_SHAPES["serve_p99"])
+    plain = recsys.serve_scores(params, cfg, batch, impl="plain")
+    hot_gather_hot_part.launches = 0
+    hot = recsys.serve_scores(params, cfg, batch, impl="hot")
+    torch.cuda.synchronize()
+    launches = hot_gather_hot_part.launches
+    diff = float((hot - plain).abs().max())
+    print(f"MIND serve_scores at serve_p99 {tuple(hot.shape)}: hot route vs plain max abs "
+          f"diff {diff:.3e}, K1 launches {launches}")
+    want_shape = (RECSYS_SHAPES["serve_p99"].batch, batch["candidates"].shape[1])
+    if hot.shape != want_shape or not torch.isfinite(hot).all():
+        fail(f"MIND serve_scores: not finite scores of shape {want_shape}")
+    if not torch.allclose(hot, plain, rtol=1e-5, atol=1e-5):
+        fail(f"MIND serve_scores: the K1 route differs from the plain route by {diff:.3e}")
+    if launches < 1:
+        fail("MIND serve_scores: the hot route did not launch K1")
+    h = entries_for_budget(default_budget_bytes(), cfg.embed_dim * 4, max_entries=cfg.n_items)
+    idx = torch.as_tensor(batch["hist"].reshape(-1)).to(dev)
+    err = check_k1_exact("mind serve_scores hot", params["items"][:h], idx)
+
+    # retrieval: one query against 1M uniform candidates, a 2^18-row hot split
+    split = recsys.init(torch.Generator().manual_seed(1), cfg, hot_rows=RETRIEVAL_HOT_ROWS,
+                        device="cpu")
+    rb = recsys_batch(np.random.default_rng(4), cfg, RECSYS_SHAPES["retrieval_cand"])
+    on_cpu = recsys.retrieval_scores(split, cfg, rb)
+    on_card = recsys.retrieval_scores(recsys.to_device(split, dev), cfg, rb).cpu()
+    n = rb["candidates"].shape[0]
+    cold = int((rb["candidates"] >= RETRIEVAL_HOT_ROWS).sum())
+    cap = max(int(n * recsys.COLD_FRACTION) // 256 * 256, 256)
+    rdiff = float((on_card - on_cpu).abs().max())
+    print(f"MIND retrieval_scores at retrieval_cand {tuple(on_card.shape)}: {cold} cold "
+          f"candidates, cap {cap}, {max(cold - cap, 0)} zero rows; card vs CPU max abs diff "
+          f"{rdiff:.3e}")
+    if on_card.shape != (1, n) or not torch.isfinite(on_card).all():
+        fail("MIND retrieval_scores: not finite scores of the expected shape")
+    if not torch.allclose(on_card, on_cpu, rtol=1e-5, atol=1e-5):
+        fail(f"MIND retrieval_scores: the card differs from the CPU by {rdiff:.3e}")
+    return [(params["items"], h, idx)], launches, err
+
+
+class StreamProbe:
+    """Records, for one run of ``run_recsys_stream``, each cache lookup
+    (host ms, whether it had hot references, its ids) and each forward
+    (ms, payloads and scores of the first). Lookups end in a
+    synchronisation, so the forward's remainder is the routed math."""
+
+    def __init__(self):
+        self.lookup_ms, self.forward_ms, self.lookups = [], [], []
+        self.first = None
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+
+        from repro_torch.serve.cache import EmbeddingCache
+        from repro_torch.serve.engine import RecsysServeEngine
+
+        self._saved = EmbeddingCache.lookup, RecsysServeEngine.forward
+        lookup, forward = self._saved
+        probe = self
+
+        def timed_lookup(cache, ids):
+            t0 = time.perf_counter()
+            out, stats = lookup(cache, ids)
+            torch.cuda.synchronize()
+            probe.lookup_ms.append((time.perf_counter() - t0) * 1e3)
+            probe.lookups.append((np.asarray(ids), stats.hot_hits > 0))
+            return out, stats
+
+        def timed_forward(engine, payloads):
+            t0 = time.perf_counter()
+            out = forward(engine, payloads)
+            probe.forward_ms.append((time.perf_counter() - t0) * 1e3)
+            if probe.first is None:
+                probe.first = (payloads, out)
+            return out
+
+        EmbeddingCache.lookup, RecsysServeEngine.forward = timed_lookup, timed_forward
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve.cache import EmbeddingCache
+        from repro_torch.serve.engine import RecsysServeEngine
+
+        EmbeddingCache.lookup, RecsysServeEngine.forward = self._saved
+
+
+def run_mind_stream(dev, params) -> tuple[list, list, float]:
+    """Phase 8: MIND through the GRASP cache at full width. Returns K1's
+    launch mix on the cache path (one batch's history and candidate
+    lookups), the launches of each and K1's error there."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+    from repro_torch.nn import recsys
+    from repro_torch.serve.cache import CacheConfig
+    from repro_torch.serve.engine import StreamConfig, run_recsys_stream
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    cfg = get_arch("mind")
+    sched = SchedulerConfig(max_batch=MIND_MAX_BATCH, max_queue=MIND_REQUESTS)
+    # every request arrives at t = 0, so every batch is full
+    stream = StreamConfig(requests=MIND_REQUESTS, qps=float("inf"), candidates=64, zipf_a=1.1,
+                          deadline_s=None, seed=0)
+    budget = MIND_CACHE_BYTES
+    runs = {}
+    for label, frac, policy in (("grasp", 0.5, "rrpv"), ("unpinned rrpv", 0.0, "rrpv"),
+                                ("unpinned lru", 0.0, "lru")):
+        with StreamProbe() as probe:
+            hot_gather_hot_part.launches = 0
+            t0 = time.perf_counter()
+            snap = run_recsys_stream(cfg, CacheConfig(budget, frac, policy), sched, stream,
+                                     params=params, service_time_s=1e-3, device=dev)
+            launches = hot_gather_hot_part.launches
+        c = snap["counters"]
+        runs[label] = (snap, probe, launches)
+        print(f"MIND stream {label}: hot {snap['config']['hot_size']} cold "
+              f"{snap['config']['cold_slots']} rows; hit rate {snap['hit_rate']:.6f} (hot "
+              f"{c.get('hot_hits', 0)} cold {c.get('cold_hits', 0)} misses {c['misses']}); "
+              f"{c['completed']} completed in {c['batches']} batches; K1 launches {launches}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if c["completed"] != stream.requests:
+            fail(f"MIND stream {label}: {c['completed']} of {stream.requests} completed")
+    grasp, probe, launches = runs["grasp"]
+    for label in ("unpinned rrpv", "unpinned lru"):
+        if not grasp["hit_rate"] > runs[label][0]["hit_rate"]:
+            fail(f"MIND stream: GRASP's hit rate {grasp['hit_rate']} does not beat {label}'s "
+                 f"{runs[label][0]['hit_rate']}")
+        if runs[label][2] != 0:
+            fail(f"MIND stream {label}: K1 launched {runs[label][2]} times with nothing pinned")
+    hot_lookups = sum(hit for _, hit in probe.lookups)
+    if launches < hot_lookups or hot_lookups < 1:
+        fail(f"MIND stream grasp: {launches} K1 launches for {hot_lookups} lookups with hot "
+             f"references")
+
+    # the first batch against the dense forward of the same requests
+    payloads, scores = probe.first
+    batch = {k: np.stack([p[k] for p in payloads]) for k in payloads[0]}
+    dense = recsys.serve_scores(params, cfg, batch, impl="plain").cpu().numpy()
+    diff = float(np.abs(scores - dense).max())
+    print(f"MIND stream grasp: first batch of {len(payloads)} scores {scores.shape} vs the "
+          f"dense serve_scores max abs diff {diff:.3e}")
+    if scores.shape != (MIND_MAX_BATCH, 64) or not np.isfinite(scores).all():
+        fail(f"MIND stream: the first batch's scores are not finite ({MIND_MAX_BATCH}, 64)")
+    if not np.allclose(scores, dense, rtol=1e-5, atol=1e-5):
+        fail(f"MIND stream: the cache-fed scores differ from the dense forward by {diff:.3e}")
+
+    # K1's shapes on this path: the first batch's history and candidate lookups
+    hot_size = grasp["config"]["hot_size"]
+    items = params["items"]
+    mix, counts, err = [], [], 0.0
+    for k, kind in enumerate(("history", "candidates")):
+        ids = probe.lookups[k][0]
+        idx = torch.as_tensor(np.where(ids < hot_size, ids, -1).astype(np.int32)).to(dev)
+        err = max(err, check_k1_exact(f"mind serve cache {kind}", items[:hot_size], idx))
+        mix.append((items, hot_size, idx))
+        counts.append(sum(hit for _, hit in probe.lookups[k::2]))
+
+    # measured service time: throughput, tails, and where a batch's time goes
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with StreamProbe() as probe:
+        snap = run_recsys_stream(cfg, CacheConfig(budget, 0.5, "rrpv"), sched, stream,
+                                 params=params, device=dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    e2e = snap["latency"]["e2e"]
+    lookup = [a + b for a, b in zip(probe.lookup_ms[::2], probe.lookup_ms[1::2])]
+    routed = [f - lk for f, lk in zip(probe.forward_ms, lookup)]
+    busy_s = sum(probe.forward_ms) / 1e3
+    print(f"MIND stream measured: {snap['counters']['completed']} requests in "
+          f"{snap['counters']['batches']} batches, {snap['counters']['completed'] / busy_s:.1f} "
+          f"requests/s; e2e p50 {e2e['p50_s'] * 1e3:.3f} ms p99 {e2e['p99_s'] * 1e3:.3f} ms "
+          f"max {e2e['max_s'] * 1e3:.3f} ms; per batch: cache lookups (host, both) median "
+          f"{statistics.median(lookup):.3f} ms, routed forward (card) median "
+          f"{statistics.median(routed):.3f} ms, forward total median "
+          f"{statistics.median(probe.forward_ms):.3f} ms; hit rate {snap['hit_rate']:.6f}; "
+          f"peak device memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+          f"the parameters)")
+    return mix, counts, err
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from repro_torch.kernels import _build
+    # without the repository's sources this import fails before any output
+    from repro_torch.kernels import _build  # noqa: F401
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matrix products are on: MIND's float32 scores need them off")
     t0 = time.perf_counter()
-    _build.build("hot_gather")
+    build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
 
     t0 = time.perf_counter()
@@ -376,11 +719,24 @@ def main() -> int:
     qs_launches = run_quickstart(dev)
     real_launches = run_real_pagerank(dev, real_graph)
 
+    from repro_torch.configs.base import get_arch
+    from repro_torch.nn import recsys
+
+    t0 = time.perf_counter()
+    params = recsys.init(torch.Generator().manual_seed(0), get_arch("mind"), device=dev)
+    print(f"MIND parameters at full width: items {tuple(params['items'].shape)} f32 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    k3 = check_k3(dev, params["items"])
+    dense_mix, dense_launches, dense_err = check_mind_dense(dev, params)
+    cache_mix, cache_counts, cache_err = run_mind_stream(dev, params)
+
     # the quickstart launches K1 once per PageRank iteration, then once in step 5
     k1_qs = k1_numbers("quickstart", k1_mix["quickstart"], [qs_launches - 1, 1],
                        k1_err["quickstart"])
     k1_real = k1_numbers("real-size pagerank", k1_mix["real-size pagerank"], [real_launches],
                          k1_err["real-size pagerank"])
+    k1_cache = k1_numbers("mind serve cache", cache_mix, cache_counts, cache_err)
+    k1_dense = k1_numbers("mind serve_scores hot", dense_mix, [dense_launches], dense_err)
     source = "src/repro_torch/csrc/hot_gather.cu"
     k1_tpu = "src/repro/kernels/hot_gather/hot_gather.py:26"
     kernels = [
@@ -388,10 +744,19 @@ def main() -> int:
              path="quickstart", **k1_qs),
         dict(name="hot_gather", route="cuda", source=source, replaces=k1_tpu,
              path="real-size pagerank", **k1_real),
+        dict(name="hot_gather", route="cuda", source=source, replaces=k1_tpu,
+             path="mind serve cache", **k1_cache),
+        dict(name="hot_gather", route="cuda", source=source, replaces=k1_tpu,
+             path="mind serve_scores hot", **k1_dense),
         dict(name="gather_segsum", route="cuda", source=source,
              replaces="src/repro/kernels/hot_gather/hot_gather.py:58",
              path="aligned pull sum", **k2),
+        dict(name="hot_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
+             replaces="src/repro/kernels/embedding_bag/embedding_bag.py:20",
+             path="mind bag (serve_bulk)", **k3),
     ]
+    if any(k["launches"] < 1 for k in kernels):
+        fail("a kernel's path did not launch it")
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

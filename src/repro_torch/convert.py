@@ -1,12 +1,15 @@
-"""Carry the reference's state across: this system has no weights; its
-state is the graph, the plan and the trace. Each builder takes the JAX
+"""Carry the reference's state across: the graph, the plan and the trace
+of the graph pipeline, and MIND's parameters. Each function takes the JAX
 package's numpy fields (or any arrays of the same values) and returns the
 port's object, with the dtypes the port's code expects."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
+import torch
+
+from repro_torch import devices
 
 from repro_torch.core.cachesim import Trace
 from repro_torch.core.plan import GraspPlan
@@ -42,3 +45,23 @@ def trace_from_numpy(line, hint, pc, region, nxt) -> Trace:
     if len({a.shape for a in arrays.values()}) != 1:
         raise ValueError("trace arrays must share one length")
     return Trace(**arrays)
+
+
+def mind_params_from_numpy(params: Dict, device: str | torch.device = devices.DEFAULT_DEVICE
+                           ) -> Dict:
+    """MIND parameters from the JAX ``nn.recsys.init`` pytree as numpy arrays
+    (``s_mat``, ``mlp[i]["w"]``, and ``items`` or ``items_hot`` +
+    ``items_cold``) -> the port's dict of float32 tensors on ``device``."""
+    dev = devices.resolve(device)
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    out = {"s_mat": tensor(params["s_mat"]),
+           "mlp": [{"w": tensor(layer["w"])} for layer in params["mlp"]]}
+    tables = [k for k in ("items", "items_hot", "items_cold") if k in params]
+    if tables not in (["items"], ["items_hot", "items_cold"]):
+        raise ValueError(f"expected items or items_hot + items_cold, got {tables}")
+    for k in tables:
+        out[k] = tensor(params[k])
+    return out

@@ -1,0 +1,204 @@
+"""MIND: Multi-Interest Network with Dynamic routing (Li et al., CIKM'19),
+the serving functions.
+
+Pipeline: item-embedding lookup over the user's behaviour history, capsule
+dynamic routing into ``n_interests`` interest capsules, and candidate
+scoring against the interests with a max-over-interests reduction. The
+training functions (label-aware attention, sampled-softmax loss) join with
+the training slice.
+
+GRASP tie-in: item popularity is Zipfian — with the table rows ordered by
+popularity (the recsys analogue of DBG reordering), the leading rows form
+the High Reuse Region. ``impl="hot"`` reads the history through the
+hot-gather kernel (K1), whose hot-row loads carry an L2 ``evict_last``
+hint; ``init(..., hot_rows=...)`` splits the table at the same boundary.
+
+Parameters are a plain dict of tensors (``s_mat``, ``mlp[i]["w"]`` and
+``items``, or ``items_hot`` + ``items_cold``); the functions compute on the
+device the parameters lie on. Batches may hold numpy arrays or tensors.
+
+Routing logits are ``sin(id * (1 + k))`` in float32, as in the JAX
+package. The products are exact in float32 (ids < 2^21, k < 4), but the
+arguments reach 8.4e6 rad, where the card's ``sinf`` and the CPU's ``sin``
+differ by a few ulps; that difference, carried through three softmax
+rounds, stays far below the 1e-5 the scores are held to.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch import devices
+from repro_torch.configs.base import RecsysConfig
+from repro_torch.kernels.embedding_bag.ref import lookup_ref
+from repro_torch.nn import layers as L
+
+
+def init(gen: torch.Generator, cfg: RecsysConfig, hot_rows: int = 0,
+         device: str | torch.device = devices.DEFAULT_DEVICE) -> Dict:
+    """Random MIND parameters drawn from ``gen`` (on its own device, so one
+    seed gives the same parameters on every device), placed on ``device``.
+
+    ``hot_rows > 0`` splits the popularity-ordered table at the GRASP
+    High-Reuse boundary: ``items_hot`` + ``items_cold``. The range test
+    ``id < hot_rows`` is the paper's ABR classification.
+    """
+    dev = devices.resolve(device)
+    d = cfg.embed_dim
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+
+    p = {
+        # shared bilinear map S for capsule routing (B2I variant)
+        "s_mat": normal(d, d) / np.sqrt(d),
+        "mlp": [L.dense_init(gen, d, cfg.d_hidden), L.dense_init(gen, cfg.d_hidden, d)],
+    }
+    if hot_rows > 0:
+        p["items_hot"] = normal(hot_rows, d) * 0.05
+        p["items_cold"] = normal(cfg.n_items - hot_rows, d) * 0.05
+    else:
+        p["items"] = normal(cfg.n_items, d) * 0.05
+    return to_device(p, dev)
+
+
+def to_device(params: Dict, device: torch.device) -> Dict:
+    """The parameter dict with every tensor on ``device``."""
+    out = {k: v.to(device) for k, v in params.items() if k != "mlp"}
+    out["mlp"] = [{"w": layer["w"].to(device)} for layer in params["mlp"]]
+    return out
+
+
+COLD_FRACTION = 0.5  # bounded cold-path capacity (Zipf: ~8% of lookups
+                     # miss a 2^18-row hot prefix; 0.5 is a safety margin)
+
+
+def _device_of(params: Dict) -> torch.device:
+    return params["s_mat"].device
+
+
+def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x).to(device)
+
+
+def table_lookup(params: Dict, ids: torch.Tensor) -> torch.Tensor:
+    """GRASP-classified lookup: ``ids.shape + (d,)`` rows.
+
+    With a dense ``items`` table this is ``jnp.take``'s lookup. With a
+    split table, hot ids read ``items_hot`` (negative ids read its row 0)
+    and cold ids are compacted into a bounded buffer of
+    ``cap = max(int(n * COLD_FRACTION) // 256 * 256, 256)`` entries for
+    ``n`` ids and read from ``items_cold``. Cold references past ``cap``
+    get a zero row, as the JAX package's code gives them (graceful
+    degradation, like MoE token dropping). The compaction synchronises with
+    the device.
+    """
+    if "items_hot" not in params:
+        return lookup_ref(params["items"], ids)
+    h, d = params["items_hot"].shape
+    shape = tuple(ids.shape)
+    flat = ids.reshape(-1)
+    n = flat.shape[0]
+    cap = max(int(n * COLD_FRACTION) // 256 * 256, 256)
+
+    out = params["items_hot"].index_select(0, flat.clamp(0, h - 1))
+    cold_pos = torch.nonzero(flat >= h).squeeze(1)
+    out[cold_pos[cap:]] = 0.0
+    kept = cold_pos[:cap]
+    out[kept] = lookup_ref(params["items_cold"], flat[kept] - h)
+    return out.reshape(shape + (d,))
+
+
+def _squash(x: torch.Tensor, dim: int = -1, eps: float = 1e-9) -> torch.Tensor:
+    n2 = torch.sum(x * x, dim=dim, keepdim=True)
+    return (n2 / (1.0 + n2)) * x / torch.sqrt(n2 + eps)
+
+
+def embedding_lookup(table, ids: torch.Tensor, impl: str = "plain", plan=None) -> torch.Tensor:
+    """(B, H) ids -> (B, H, d). ``impl='hot'`` reads through the two-tier
+    hot gather (K1) with the ``GraspPlan`` hot prefix (default: the rows
+    that fit the card's L2)."""
+    if impl == "plain":
+        return table_lookup(table, ids) if isinstance(table, dict) else lookup_ref(table, ids)
+    if impl == "hot":
+        from repro_torch.kernels.embedding_bag import ops as bag_ops
+
+        b, h = ids.shape
+        out = bag_ops.hot_lookup(table, ids.reshape(-1).to(torch.int32), plan=plan)
+        return out.reshape(b, h, -1)
+    raise ValueError(impl)
+
+
+def user_interests(params: Dict, cfg: RecsysConfig, hist, hist_mask,
+                   impl: str = "plain", plan=None) -> torch.Tensor:
+    """hist (B, H) item ids -> interest capsules (B, K, d).
+
+    Dynamic routing (capsule_iters rounds) with fixed routing-logit init
+    derived from item ids (deterministic, matches MIND's B2I)."""
+    dev = _device_of(params)
+    hist, hist_mask = _as_tensor(hist, dev), _as_tensor(hist_mask, dev)
+    if impl == "plain":
+        e = table_lookup(params, hist)                              # (B, H, d)
+    else:
+        e = embedding_lookup(params["items"], hist, impl, plan)
+    return user_interests_from_emb(params, cfg, e, hist, hist_mask)
+
+
+def user_interests_from_emb(params: Dict, cfg: RecsysConfig, e: torch.Tensor,
+                            hist: torch.Tensor, hist_mask: torch.Tensor) -> torch.Tensor:
+    """Routing from pre-gathered history embeddings ``e`` (B, H, d).
+
+    The serving tier (``repro_torch.serve``) gathers ``e`` through its
+    GRASP-managed embedding cache and hands it here, so the capsule math is
+    shared between the parameter-table and cache-fed paths."""
+    k = cfg.n_interests
+    e = torch.where(hist_mask[..., None], e, e.new_zeros(()))
+    eh = torch.einsum("bhd,de->bhe", e, params["s_mat"])              # bilinear map
+
+    # deterministic routing-logit init (hash of item id x capsule)
+    caps = 1.0 + torch.arange(k, dtype=torch.float32, device=e.device)
+    logits = torch.sin(hist[..., None].to(torch.float32) * caps)       # (B, H, K)
+
+    interests = None
+    for _ in range(cfg.capsule_iters):
+        w = torch.softmax(logits, dim=-1)                              # (B, H, K)
+        w = torch.where(hist_mask[..., None], w, w.new_zeros(()))
+        z = torch.einsum("bhk,bhd->bkd", w, eh)
+        interests = _squash(z)                                         # (B, K, d)
+        logits = logits + torch.einsum("bkd,bhd->bhk", interests, eh)
+
+    # per-interest MLP refinement
+    h = L.dense(params["mlp"][0], interests, torch.float32)
+    h = torch.relu(h)
+    return interests + L.dense(params["mlp"][1], h, torch.float32)
+
+
+def score_candidates(interests: torch.Tensor, cand_emb: torch.Tensor) -> torch.Tensor:
+    """(B, K, d) interests x (B, C, d) candidates -> (B, C) max-over-interest
+    scores (MIND serving reduction)."""
+    scores = torch.einsum("bkd,bcd->bkc", interests, cand_emb)
+    return scores.amax(dim=1)
+
+
+def serve_scores(params: Dict, cfg: RecsysConfig, batch: Dict, impl: str = "plain",
+                 plan=None) -> torch.Tensor:
+    """Online inference: score each request's candidate set.
+
+    batch: hist (B,H), hist_mask (B,H), candidates (B, C) int32.
+    Max-over-interests scoring (MIND serving)."""
+    interests = user_interests(params, cfg, batch["hist"], batch["hist_mask"], impl, plan)
+    cand = table_lookup(params, _as_tensor(batch["candidates"], _device_of(params)))
+    return score_candidates(interests, cand)                          # (B, C)
+
+
+def retrieval_scores(params: Dict, cfg: RecsysConfig, batch: Dict, impl: str = "plain",
+                     plan=None) -> torch.Tensor:
+    """One query against n_candidates (batched dot, no loop): the
+    ``retrieval_cand`` shape. candidates (C,) int32 (C ~ 1e6)."""
+    interests = user_interests(params, cfg, batch["hist"], batch["hist_mask"],
+                               impl, plan)                            # (1, K, d)
+    cand = table_lookup(params, _as_tensor(batch["candidates"], _device_of(params)))  # (C, d)
+    scores = torch.einsum("bkd,cd->bkc", interests, cand)
+    return scores.amax(dim=1)                                         # (1, C)

@@ -1,0 +1,239 @@
+"""Serving engine: cache + scheduler wired to the MIND forward.
+
+``RecsysServeEngine`` serves MIND candidate-scoring requests: history and
+candidate item embeddings are gathered through the GRASP
+``EmbeddingCache`` (hot rows by K1 on the device) and fed to the shared
+capsule-routing math (``nn.recsys.user_interests_from_emb`` /
+``score_candidates``). Partial batches are padded up to ``max_batch``
+*after* the cache lookup, so the forward sees one shape while the cache
+only ever sees real references.
+
+``run_recsys_stream`` drives a full closed-loop run on a zipf request
+stream against a virtual clock — the entry point the serve CLI uses.
+
+The GNN and LM engines join with their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import devices
+from repro_torch.configs.base import RecsysConfig
+from repro_torch.data.pipeline import zipf_ids
+from repro_torch.nn import recsys as recsys_mod
+from repro_torch.serve.cache import CacheConfig, EmbeddingCache
+from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.scheduler import (
+    ContinuousBatcher,
+    Request,
+    SchedulerConfig,
+    VirtualClock,
+)
+
+
+def _pad_batch(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Zero-pad the batch dim to ``width``."""
+    if x.shape[0] >= width:
+        return x
+    return torch.cat([x, x.new_zeros((width - x.shape[0],) + tuple(x.shape[1:]))])
+
+
+class _EngineBase:
+    """Shared continuous-batching pump.
+
+    ``step`` claims a batch, runs ``forward``, and — when the scheduler
+    clock is a ``VirtualClock`` — advances it by the measured forward wall
+    time (or a deterministic ``service_model(batch_size)``) before
+    completion, so virtual-time latency accounting includes service time.
+    ``forward`` returns host arrays, so the device has finished the batch
+    before ``step`` reads the clock.
+    """
+
+    batcher: ContinuousBatcher
+    service_model = None  # Optional[Callable[[int], float]]
+
+    def submit(self, payload: Dict, deadline_s: Optional[float] = None) -> Request:
+        return self.batcher.submit(payload, deadline_s)
+
+    def forward(self, payloads: List[Dict]) -> np.ndarray:
+        raise NotImplementedError
+
+    def step(self) -> int:
+        """Run one continuous-batching iteration; returns batch size."""
+        batch = self.batcher.next_batch()
+        if not batch:
+            return 0
+        t0 = time.perf_counter()
+        results = self.forward([r.payload for r in batch])
+        dt = time.perf_counter() - t0
+        clock = self.batcher.clock
+        if isinstance(clock, VirtualClock):
+            if self.service_model is not None:
+                dt = self.service_model(len(batch))
+            clock.advance(dt)
+        self.batcher.complete(batch, list(results))
+        return len(batch)
+
+    def run_until_idle(self) -> None:
+        while self.step():
+            pass
+
+
+class RecsysServeEngine(_EngineBase):
+    """MIND candidate scoring over the GRASP embedding cache.
+
+    Request payload: ``{"hist": (H,), "hist_mask": (H,), "candidates":
+    (C,)}``; result: ``(C,)`` float32 scores. ``params`` must hold a dense
+    ``items`` table — the cache becomes the only reader of it (a host copy
+    is its backing store). The rest of ``params`` and the cache's blocks
+    are placed on ``device``.
+    """
+
+    def __init__(
+        self,
+        params: Dict,
+        cfg: RecsysConfig,
+        cache_config: CacheConfig,
+        sched_config: SchedulerConfig,
+        metrics: Optional[ServeMetrics] = None,
+        clock=time.monotonic,
+        service_model=None,
+        device: str | torch.device = devices.DEFAULT_DEVICE,
+    ) -> None:
+        self.device = devices.resolve(device)
+        self.cfg = cfg
+        self.metrics = metrics if metrics is not None else ServeMetrics()
+        self.params = recsys_mod.to_device(
+            {k: v for k, v in params.items() if k != "items"}, self.device)
+        self.cache = EmbeddingCache(
+            params["items"].cpu().numpy(), cache_config, metrics=self.metrics,
+            device=self.device,
+        )
+        self.batcher = ContinuousBatcher(sched_config, clock=clock,
+                                         metrics=self.metrics)
+        self._width = sched_config.max_batch
+        self.service_model = service_model
+
+    def _routed(self, e, hist, mask, cand_e) -> torch.Tensor:
+        interests = recsys_mod.user_interests_from_emb(self.params, self.cfg, e, hist, mask)
+        return recsys_mod.score_candidates(interests, cand_e)
+
+    def forward(self, payloads: List[Dict]) -> np.ndarray:
+        """Score a list of request payloads; returns (n, C)."""
+        n = len(payloads)
+        # normalize dtypes so decoded payloads (int64 lists) take the same path
+        hist = np.stack([p["hist"] for p in payloads]).astype(np.int32)
+        cand = np.stack([p["candidates"] for p in payloads]).astype(np.int32)
+        mask = np.stack([p["hist_mask"] for p in payloads]).astype(bool)
+        # the looked-up rows stay on the device (the JAX engine copied them
+        # device -> host -> device to pad the batch)
+        e, _ = self.cache.lookup(hist.reshape(-1))
+        ce, _ = self.cache.lookup(cand.reshape(-1))
+        w, d, dev = self._width, self.cache.dim, self.device
+        scores = self._routed(
+            _pad_batch(e.reshape(hist.shape + (d,)), w),
+            _pad_batch(torch.from_numpy(hist).to(dev), w),
+            _pad_batch(torch.from_numpy(mask).to(dev), w),
+            _pad_batch(ce.reshape(cand.shape + (d,)), w),
+        )
+        return scores[:n].cpu().numpy()   # waits for the device
+
+    def warmup(self, candidates: int) -> None:
+        """Run the forward once at the canonical batch shape without
+        touching the cache or metrics (library handles, allocator pools)."""
+        w, h, d, dev = self._width, self.cfg.hist_len, self.cache.dim, self.device
+        self._routed(
+            torch.zeros((w, h, d), device=dev),
+            torch.zeros((w, h), dtype=torch.int32, device=dev),
+            torch.zeros((w, h), dtype=torch.bool, device=dev),
+            torch.zeros((w, candidates, d), device=dev),
+        ).cpu()
+
+
+# ---------------------------------------------------------------------------
+# Closed-loop zipf request stream (the CLI's loop)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    requests: int = 256
+    qps: float = 2000.0            # offered load (virtual-time arrivals)
+    candidates: int = 32
+    zipf_a: float = 1.1
+    deadline_s: Optional[float] = 0.05
+    seed: int = 0
+
+
+def stream_payloads(cfg: RecsysConfig, stream: StreamConfig) -> List[Dict]:
+    """The stream's request payloads: zipf histories (all positions kept) and
+    zipf candidates, drawn from ``stream.seed``."""
+    rng = np.random.default_rng(stream.seed)
+    payloads = []
+    for _ in range(stream.requests):
+        hist = zipf_ids(rng, (cfg.hist_len,), cfg.n_items, a=stream.zipf_a)
+        cand = zipf_ids(rng, (stream.candidates,), cfg.n_items, a=stream.zipf_a)
+        payloads.append({
+            "hist": hist,
+            "hist_mask": np.ones(cfg.hist_len, bool),
+            "candidates": cand,
+        })
+    return payloads
+
+
+def run_recsys_stream(
+    cfg: RecsysConfig,
+    cache_config: CacheConfig,
+    sched_config: SchedulerConfig,
+    stream: StreamConfig,
+    params: Optional[Dict] = None,
+    service_time_s: Optional[float] = None,
+    device: str | torch.device = devices.DEFAULT_DEVICE,
+) -> Dict:
+    """Drive a zipf-skewed request stream through a fresh engine on ``device``.
+
+    Arrivals follow a deterministic uniform process at ``stream.qps`` on a
+    virtual clock; each batch advances the clock by the *measured* forward
+    wall time (or ``service_time_s`` for fully deterministic runs). Returns
+    the metrics snapshot, including cache hit rates and latency tails.
+    ``params`` defaults to ``nn.recsys.init`` from seed 0, made on the host:
+    the engine moves what the forward needs to ``device``, and the table
+    stays on the host as the cache's backing store.
+    """
+    dev = devices.resolve(device)
+    if params is None:
+        params = recsys_mod.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    clock = VirtualClock()
+    service_model = (None if service_time_s is None
+                     else (lambda n: service_time_s))
+    engine = RecsysServeEngine(params, cfg, cache_config, sched_config,
+                               clock=clock, service_model=service_model, device=dev)
+    arrivals = np.arange(stream.requests) / stream.qps
+    payloads = stream_payloads(cfg, stream)
+
+    i = 0
+    while i < stream.requests or engine.batcher.depth:
+        while i < stream.requests and arrivals[i] <= clock():
+            engine.submit(payloads[i], deadline_s=stream.deadline_s)
+            i += 1
+        if not engine.batcher.depth:
+            clock.advance_to(arrivals[i])
+            continue
+        engine.step()
+    snap = engine.metrics.snapshot()
+    snap["config"] = {
+        "budget_bytes": cache_config.budget_bytes,
+        "hot_fraction": cache_config.hot_fraction,
+        "policy": cache_config.policy,
+        "hot_size": engine.cache.hot_size,
+        "cold_slots": engine.cache.cold_slots,
+        "max_batch": sched_config.max_batch,
+        "max_queue": sched_config.max_queue,
+        "qps": stream.qps,
+        "deadline_s": stream.deadline_s,
+        "requests": stream.requests,
+    }
+    return snap

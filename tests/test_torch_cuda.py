@@ -87,3 +87,77 @@ def test_pagerank_through_k1_matches_cpu(cuda):
     assert kernels.hot_gather_hot_part.launches > before
     on_cpu = apps.pagerank(g.device("cpu"))
     torch.testing.assert_close(on_card, on_cpu, rtol=1e-5, atol=1e-7)
+
+
+# --- K3 (hot embedding bag) and the MIND serving path -----------------------
+def make_bags(v, d, b, h, hot, seed=0):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    ids = rng.integers(0, v, (b, h)).astype(np.int32)
+    ids = np.where(rng.random((b, h)) < 0.8, ids % max(hot, 1), ids).astype(np.int32)
+    ids[::7, 0] = -1
+    mask = rng.random((b, h)) < 0.9
+    return table, ids, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("v,d,b,h,hot", [(2000, 16, 512, 8, 256), (5000, 64, 300, 12, 512),
+                                         (1000, 100, 64, 4, 1000), (600, 1, 70, 50, 300),
+                                         (900, 200, 33, 37, 900), (300, 130, 40, 5, 0)])
+def test_k3_matches_plain_bit_for_bit(cuda, v, d, b, h, hot, dtype):
+    from repro_torch.kernels.embedding_bag import embedding_bag as bag_kernel
+    from repro_torch.kernels.embedding_bag import ref as bag_ref
+
+    table, ids, mask = make_bags(v, d, b, h, hot)
+    hot_t = torch.as_tensor(table[:hot]).to(DTYPES[dtype]).to(cuda)
+    ids_t, mask_t = torch.as_tensor(ids).to(cuda), torch.as_tensor(mask).to(cuda)
+    before = bag_kernel.hot_bag_hot_part.launches
+    got = bag_kernel.hot_bag_hot_part(hot_t, ids_t, mask_t)
+    torch.cuda.synchronize()
+    assert bag_kernel.hot_bag_hot_part.launches == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, d)
+    assert torch.equal(got, bag_ref.hot_bag_ref(hot_t, ids_t, mask_t))
+    none = bag_kernel.hot_bag_hot_part(hot_t, ids_t, torch.zeros_like(mask_t))
+    assert float(none.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_hot_bag_on_card_matches_cpu(cuda):
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+
+    table, ids, mask = make_bags(3000, 64, 256, 50, 512, seed=1)
+    ids[3, 4] = 3000                                    # >= V: NaN, as the JAX package
+    args = [torch.as_tensor(a) for a in (table, ids, mask)]
+    for cap in (None, 100):
+        on_card = bag_ops.hot_bag(*[a.to(cuda) for a in args], hot_size=512,
+                                  cold_capacity=cap).cpu()
+        on_cpu = bag_ops.hot_bag(*args, hot_size=512, cold_capacity=cap)
+        assert torch.equal(torch.isnan(on_card), torch.isnan(on_cpu))
+        torch.testing.assert_close(on_card.nan_to_num(), on_cpu.nan_to_num(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_mind_serving_on_card_matches_cpu(cuda):
+    from repro_torch.configs import base
+    from repro_torch.data import pipeline
+    from repro_torch.nn import recsys
+    from repro_torch.serve import cache, engine, scheduler
+
+    cfg = base.reduced(base.get_arch("mind"))
+    params = recsys.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = pipeline.recsys_batch(np.random.default_rng(0), cfg, base.RECSYS_SHAPES["serve_p99"])
+    on_cpu = recsys.serve_scores(params, cfg, batch)
+    card = recsys.to_device(params, cuda)
+    before = kernels.hot_gather_hot_part.launches
+    for impl in ("plain", "hot"):
+        got = recsys.serve_scores(card, cfg, batch, impl=impl).cpu()
+        torch.testing.assert_close(got, on_cpu, rtol=1e-5, atol=1e-5)
+    assert kernels.hot_gather_hot_part.launches > before
+    cc = cache.CacheConfig(budget_bytes=128 * cfg.embed_dim * 4)
+    sc = scheduler.SchedulerConfig(max_batch=8, max_queue=64)
+    st = engine.StreamConfig(requests=40, qps=1e9, deadline_s=None)
+    snaps = [engine.run_recsys_stream(cfg, cc, sc, st, params=params, service_time_s=1e-3,
+                                      device=dev) for dev in (cuda, "cpu")]
+    assert snaps[0] == snaps[1]

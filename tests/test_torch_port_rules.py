@@ -67,6 +67,35 @@ def test_quickstart_without_device_raises_without_cuda(monkeypatch):
         quickstart_torch.main()
 
 
+def test_serving_entry_points_without_device_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.configs import base
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.nn import recsys
+    from repro_torch.serve import cache, engine, scheduler
+
+    cfg = base.reduced(base.get_arch("mind"))
+    table = np.zeros((64, 4), np.float32)
+    cc = cache.CacheConfig(budget_bytes=16 * 16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        recsys.init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cache.EmbeddingCache(table, cc)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        engine.run_recsys_stream(cfg, cc, scheduler.SchedulerConfig(), engine.StreamConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_cli.main(["--engine", "recsys", "--requests", "2"])
+    params = recsys.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        engine.RecsysServeEngine(params, cfg, cc, scheduler.SchedulerConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.mind_params_from_numpy({k: v for k, v in params.items()})
+    assert cache.EmbeddingCache(table, cc, device="cpu").device.type == "cpu"
+
+
 def test_kernel_wrappers_refuse_meta_tensors():
     from repro_torch.kernels.hot_gather import hot_gather, ops
 
@@ -80,3 +109,17 @@ def test_kernel_wrappers_refuse_meta_tensors():
         ops.hot_gather(hot, idx)
     with pytest.raises(ValueError):  # index on another device than the table
         hot_gather.hot_gather_hot_part(torch.zeros((16, 4)), idx)
+
+
+def test_embedding_bag_wrappers_refuse_meta_tensors():
+    from repro_torch.kernels.embedding_bag import embedding_bag, ops
+
+    hot = torch.empty((16, 4), device="meta")
+    ids = torch.empty((8, 5), dtype=torch.int32, device="meta")
+    mask = torch.empty((8, 5), dtype=torch.bool, device="meta")
+    with pytest.raises(RuntimeError, match="no embedding-bag kernel"):
+        embedding_bag.hot_bag_hot_part(hot, ids, mask)
+    with pytest.raises(RuntimeError, match="no embedding-bag kernel"):
+        ops.hot_bag(hot, ids, mask, hot_size=8)
+    with pytest.raises(ValueError):  # ids on another device than the table
+        embedding_bag.hot_bag_hot_part(torch.zeros((16, 4)), ids, mask)
