@@ -6,10 +6,14 @@
 Phases, each of which must pass:
   1. build the kernels from src/repro_torch/csrc/ with nvcc (one process
      per source, all at once) and print the card's name and power limit;
-  2. K1 (hot gather) against its plain version on the card, bit for bit:
-     the quickstart's PageRank (N,) f32 and step-5 (N, 8) f32, (N, 130)
-     bf16, PageRank's (N,) f32 on the real-size graph, and the -1 / >= N /
-     cold-overflow / 1-D semantics;
+  2. K1 (hot gather) against its plain version on the card, bit for bit,
+     in its hot-part and two-tier modes (the latter without and with cold
+     ranks, on streams with -1 and >= N mixed in): the quickstart's
+     PageRank (N,) f32 and step-5 (N, 8) f32, every row layout ((N, 1)
+     bf16, (N, 3) f32, (N, 64) f32 and bf16, (N, 130) bf16), PageRank's
+     (N,) f32 on the real-size graph, index views off 16-byte alignment,
+     and the -1 / >= N / cold-overflow / 1-D semantics; the two-tier route
+     at real size under CUDA's sync debug mode (no host sync);
   3. K2 (fused gather + segment-sum) against its plain version
      (rtol = atol = 1e-5: the summation order differs), and its own path,
      the aligned pull sum, against the engine's pull;
@@ -33,7 +37,10 @@ Phases, each of which must pass:
      lookup/forward split and peak device memory.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
-at each path's own shapes, weighted by its launches.
+at each path's own shapes, weighted by its launches: event-timed, device
+time by torch.profiler, and host microseconds per call. K1's are those of
+the mode the path launches: two-tier where it goes through ops.hot_gather
+(the quickstart, PageRank, serve_scores), hot part in the serve cache.
 Then one JSON line of per-kernel numbers, the card line again, and the
 final {"ok": true, ...} line. It exits non-zero, printing no result, when
 CUDA is unavailable or the repository's sources are missing.
@@ -97,6 +104,38 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20) -> float | None:
+    """Mean device time of ``fn`` per call: the self device time of every
+    kernel it launched over ``reps`` calls, read with torch.profiler (None
+    where the profiler saw no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / reps if busy > 0 else None
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn``, over ``calls`` calls and one
+    synchronise: the rate the host issues them at, unless the card is slower."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / calls
+
+
 def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
     """(least time in ms, what bounds it) on the H100 at its published peaks."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
@@ -136,7 +175,10 @@ def check_k1(dev, qs_graph, real_graph) -> tuple[dict, dict]:
     from repro_torch.core import make_plan
     from repro_torch.graph import datasets
     from repro_torch.kernels.hot_gather import ops, ref
-    from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+    from repro_torch.kernels.hot_gather.hot_gather import (
+        hot_gather_hot_part,
+        hot_gather_two_tier,
+    )
 
     rng = np.random.default_rng(0)
     qs_idx = torch.as_tensor(qs_graph.indices).to(dev)
@@ -158,9 +200,18 @@ def check_k1(dev, qs_graph, real_graph) -> tuple[dict, dict]:
              torch.as_tensor(rng.random((real_n, 1)), dtype=torch.float32),
              min(real_n, 1 << 20), real_idx),
         ],
+        # the other row layouts, and index views off 16-byte alignment
         None: [
-            ("(N,130) bf16", torch.as_tensor(rng.standard_normal((n, 130)),
-                                             dtype=torch.bfloat16), n // 4, qs_idx),
+            (f"(N,{d}) {str(dt)[6:]}", torch.as_tensor(rng.standard_normal((n, d)), dtype=dt),
+             n // 4, qs_idx)
+            for d, dt in ((130, torch.bfloat16), (1, torch.bfloat16), (3, torch.float32),
+                          (64, torch.float32), (64, torch.bfloat16))
+        ] + [
+            ("quickstart (N,) f32, idx[1:]",
+             torch.as_tensor(rng.random((n, 1)), dtype=torch.float32), n // 4, qs_idx[1:]),
+            ("real-size (N,) f32, idx[1:]",
+             torch.as_tensor(rng.random((real_n, 1)), dtype=torch.float32),
+             min(real_n, 1 << 20), real_idx[1:]),
         ],
     }
     mixes, errs = {}, {}
@@ -175,9 +226,41 @@ def check_k1(dev, qs_graph, real_graph) -> tuple[dict, dict]:
             errs[path] = max(errs[path], float((out.float() - plain.float()).abs().max()))
             if not torch.equal(out, plain):
                 fail(f"K1 {label}: differs from its plain version")
-            print(f"K1 {label}: H={h} d={hot.shape[1]} E={idx.shape[0]} bit-identical")
+            # the two-tier mode over the whole table, on the stream with
+            # negative and >= N indices mixed in, without and with cold ranks
+            mixed = idx.clone()
+            mixed[::101] = -1
+            mixed[::211] = prop.shape[0] + 7
+            if idx.data_ptr() % 16:  # keep the view off 16-byte alignment
+                mixed = torch.cat([mixed[:1], mixed])[1:]
+            rank = torch.cumsum(mixed >= h, 0, dtype=torch.int32)
+            cap = int(rank[-1]) // 2
+            for r, c in ((None, 0), (rank, cap)):
+                two = hot_gather_two_tier(prop, mixed, h, r, c)
+                two_plain = ref.hot_gather_two_tier_ref(prop, mixed, h, r, c)
+                torch.cuda.synchronize()
+                if not same_bits(two, two_plain):
+                    fail(f"K1 two-tier {label} (cold capacity {c if r is not None else 'E'}): "
+                         f"differs from its plain version")
+                diff = (two.float() - two_plain.float()).nan_to_num(nan=0.0)
+                errs[path] = max(errs[path], float(diff.abs().max()))
+            print(f"K1 {label}: H={h} d={hot.shape[1]} E={idx.shape[0]} bit-identical; "
+                  f"two-tier over N={prop.shape[0]} bit-identical, and with cold capacity "
+                  f"{cap} of {int(rank[-1])}")
             if path is not None:
                 mixes.setdefault(path, []).append((prop, h, idx))
+
+    # the two-tier route makes no host sync, with and without a capacity
+    real_prop = mixes["real-size pagerank"][0][0]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.hot_gather(real_prop, real_idx)
+        ops.hot_gather(real_prop, real_idx, cold_capacity=real_idx.shape[0] // 100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("ops.hot_gather at real size: no host sync (sync debug mode 'error'), with the "
+          "default capacity and with E/100")
 
     # semantics probed on the JAX package: -1 -> zeros, >= N -> NaN,
     # cold past cold_capacity -> zeros; (N,) props give (E,)
@@ -201,35 +284,79 @@ def check_k1(dev, qs_graph, real_graph) -> tuple[dict, dict]:
     return mixes, errs
 
 
-def k1_numbers(path: str, mix: list, counts: list[int], err: float) -> dict:
+def k1_numbers(path: str, mix: list, counts: list[int], err: float, two_tier: bool) -> dict:
     """K1's numbers on one path: per-launch times and bound, each the mean
-    over the path's launches, which run ``counts[i]`` times at ``mix[i]``."""
+    over the path's launches, which run ``counts[i]`` times at ``mix[i]``.
+
+    ``two_tier``: the path runs ``ops.hot_gather``, one launch of K1's
+    two-tier mode over the whole table, so ``ms``, ``device_ms``,
+    ``host_us``, ``plain_ms`` and ``bound_ms`` are that mode's, against
+    ``hot_gather_two_tier_ref``; the hot-part mode's times and bound on
+    the same launches stay beside them as ``hot_part_*``. Otherwise the
+    path runs the hot-part mode, and those keys are its."""
     import torch
 
     from repro_torch.kernels.hot_gather import ops, ref
-    from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+    from repro_torch.kernels.hot_gather.hot_gather import (
+        hot_gather_hot_part,
+        hot_gather_two_tier,
+    )
 
     total = sum(counts)
-    res = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, op_ms=0.0)
-    nbytes, shapes = 0.0, []
+    keys = ["ms", "device_ms", "host_us", "plain_ms", "library_ms", "library_device_ms",
+            "library_host_us", "op_ms", "op_device_ms", "op_host_us"]
+    if two_tier:
+        keys += ["hot_part_ms", "hot_part_device_ms"]
+    parts = {key: [] for key in keys}
+    hot_bytes = all_bytes = 0.0
+    shapes = []
     for (prop, h, idx), k in zip(mix, counts):
         hot, w = prop[:h].contiguous(), k / total
         lib_idx = idx.clamp(min=0)  # the library gather takes no -1 (cache misses)
-        e, d, s = idx.shape[0], prop.shape[1], prop.element_size()
+        e, n, d, s = idx.shape[0], prop.shape[0], prop.shape[1], prop.element_size()
         hits = idx[(idx >= 0) & (idx < h)]
-        nbytes += w * (e * 4 + e * d * s + torch.unique(hits).numel() * d * s)
-        res["ms"] += w * time_ms(lambda: hot_gather_hot_part(hot, idx))
-        res["plain_ms"] += w * time_ms(lambda: ref.hot_gather_ref(hot, idx))
-        res["library_ms"] += w * time_ms(lambda: torch.index_select(prop, 0, lib_idx))
-        res["op_ms"] += w * time_ms(lambda: ops.hot_gather(prop, idx, hot_size=h))
-        shapes.append(f"{k} x hot ({h}, {d}) of N={prop.shape[0]} {str(prop.dtype)[6:]}, "
+        rows = idx[(idx >= 0) & (idx < n)]
+        hot_bytes += w * (e * 4 + e * d * s + torch.unique(hits).numel() * d * s)
+        all_bytes += w * (e * 4 + e * d * s + torch.unique(rows).numel() * d * s)
+        fns = {"library_": lambda: torch.index_select(prop, 0, lib_idx),
+               "op_": lambda: ops.hot_gather(prop, idx, hot_size=h)}
+        if two_tier:
+            fns[""] = lambda: hot_gather_two_tier(prop, idx, h)
+            fns["hot_part_"] = lambda: hot_gather_hot_part(hot, idx)
+            plain = lambda: ref.hot_gather_two_tier_ref(prop, idx, h)  # noqa: E731
+        else:
+            fns[""] = lambda: hot_gather_hot_part(hot, idx)
+            plain = lambda: ref.hot_gather_ref(hot, idx)  # noqa: E731
+        for pre, fn in fns.items():
+            dev_ms = device_ms(fn)
+            parts[f"{pre}ms"].append(w * time_ms(fn))
+            parts[f"{pre}device_ms"].append(None if dev_ms is None else w * dev_ms)
+            if f"{pre}host_us" in parts:
+                parts[f"{pre}host_us"].append(w * host_us(fn))
+        parts["plain_ms"].append(w * time_ms(plain))
+        shapes.append(f"{k} x hot ({h}, {d}) of N={n} {str(prop.dtype)[6:]}, "
                       f"E={e}, {hits.numel() / e:.4f} of edges hot")
-    res["bound_ms"], res["bound_by"] = bound(nbytes)
+    res = {key: None if None in vals else sum(vals) for key, vals in parts.items()}
+    res["mode"] = "two-tier" if two_tier else "hot part"
+    res["bound_ms"], res["bound_by"] = bound(all_bytes if two_tier else hot_bytes)
+    res["op_bound_ms"] = bound(all_bytes)[0]
+    if two_tier:
+        res["hot_part_bound_ms"] = bound(hot_bytes)[0]
     res.update(max_abs_err=err, launches=total, shape="; ".join(shapes))
-    print(f"K1 timing on {path} ({res['shape']}), per launch: kernel {res['ms']:.4f} ms, "
-          f"plain {res['plain_ms']:.4f} ms, index_select of the full table "
-          f"{res['library_ms']:.4f} ms, ops.hot_gather (K1 + cold fixup) {res['op_ms']:.4f} ms, "
-          f"bound {res['bound_ms']:.4f} ms")
+
+    def fmt(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+
+    hot_part = (f", hot-part mode {res['hot_part_ms']:.4f} ms (device "
+                f"{fmt(res['hot_part_device_ms'])}, bound {res['hot_part_bound_ms']:.4f} ms)"
+                if two_tier else "")
+    print(f"K1 timing on {path} ({res['shape']}), per launch: {res['mode']} mode "
+          f"{res['ms']:.4f} ms (device {fmt(res['device_ms'])}, host {res['host_us']:.2f} "
+          f"us/call), plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms{hot_part}; "
+          f"index_select of the full table {res['library_ms']:.4f} ms (device "
+          f"{fmt(res['library_device_ms'])}, host {res['library_host_us']:.2f} us/call); "
+          f"ops.hot_gather {res['op_ms']:.4f} ms (device {fmt(res['op_device_ms'])}, host "
+          f"{res['op_host_us']:.2f} us/call, bound {res['op_bound_ms']:.4f} ms)")
     return res
 
 
@@ -731,12 +858,15 @@ def main() -> int:
     cache_mix, cache_counts, cache_err = run_mind_stream(dev, params)
 
     # the quickstart launches K1 once per PageRank iteration, then once in step 5
+    # the serve cache runs K1's hot-part mode; the others go through ops.hot_gather
     k1_qs = k1_numbers("quickstart", k1_mix["quickstart"], [qs_launches - 1, 1],
-                       k1_err["quickstart"])
+                       k1_err["quickstart"], two_tier=True)
     k1_real = k1_numbers("real-size pagerank", k1_mix["real-size pagerank"], [real_launches],
-                         k1_err["real-size pagerank"])
-    k1_cache = k1_numbers("mind serve cache", cache_mix, cache_counts, cache_err)
-    k1_dense = k1_numbers("mind serve_scores hot", dense_mix, [dense_launches], dense_err)
+                         k1_err["real-size pagerank"], two_tier=True)
+    k1_cache = k1_numbers("mind serve cache", cache_mix, cache_counts, cache_err,
+                          two_tier=False)
+    k1_dense = k1_numbers("mind serve_scores hot", dense_mix, [dense_launches], dense_err,
+                          two_tier=True)
     source = "src/repro_torch/csrc/hot_gather.cu"
     k1_tpu = "src/repro/kernels/hot_gather/hot_gather.py:26"
     kernels = [

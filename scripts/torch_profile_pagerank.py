@@ -5,7 +5,8 @@
 
 Builds ``lj`` at ``chip_smoke.REAL_SCALE`` (the graph of chip_smoke.py's
 real-size phase), DBG-reorders it, and runs PageRank on the card per gather
-route (``hot``: K1 + cold fixup; ``plain``: ``index_select``): once
+route (``hot``: ``ops.hot_gather``, one K1 launch over both tiers;
+``plain``: ``index_select``): once
 untraced for the wall time per iteration, once under ``torch.profiler``
 for the device time of each kernel. The device idle share is taken from
 the traced run alone: 1 - its device-busy time / its own wall time.

@@ -1,11 +1,15 @@
-"""The full GRASP two-tier gather: the hot-region kernel plus the bounded
-cold fixup, and the aligned layout of the fused gather + segment-sum.
+"""The full GRASP two-tier gather, and the aligned layout of the fused
+gather + segment-sum.
 
-Cold fixup: indices >= hot_size are compacted into a capacity-bounded
-buffer (skew guarantees the cold fraction is small — paper Table I: hot
-vertices cover 81-93% of edges), gathered from device memory once, and
-scattered back. ``cold_capacity`` bounds that traffic; on no-skew inputs
-callers size it at E (graceful degradation, paper Fig. 9).
+On the TPU the hot block sat in VMEM and the cold rows in HBM, so the JAX
+package gathers the hot part in its kernel and fixes the cold indices up
+in a second, capacity-bounded pass (skew keeps the cold fraction small —
+paper Table I: hot vertices cover 81-93% of edges; ``cold_capacity``
+bounds that traffic, and callers size it at E on no-skew inputs, paper
+Fig. 9). On the card both tiers lie in one device memory and differ only
+in their L2 hint, so one launch of K1 reads both (``hot_gather_two_tier``).
+The capacity rule needs each cold index's rank in flat order, which a
+device-side scan gives, as the JAX package computes it: no host sync.
 """
 from __future__ import annotations
 
@@ -15,8 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.hot_gather.hot_gather import (
-    hot_gather_hot_part,
     hot_gather_segment_sum,
+    hot_gather_two_tier,
 )
 
 
@@ -30,9 +34,9 @@ def hot_gather(
 
     Semantics kept from the JAX package's ``ops.hot_gather``: an index in
     ``[0, N)`` gives its row; a negative index gives a zero row; an index
-    ``>= N`` gives a NaN row; cold indices past the first ``cold_capacity``
-    give zero rows. The compaction synchronises with the device (its size
-    comes from the data).
+    ``>= N`` gives a NaN row; cold indices (``>= hot_size``) past the first
+    ``cold_capacity``, in flat order, give zero rows. One K1 launch, plus a
+    scan of the cold mask when ``cold_capacity < E``; no host sync.
     """
     if prop.dim() not in (1, 2):
         raise ValueError(f"prop must be (N,) or (N, d), got shape {tuple(prop.shape)}")
@@ -47,15 +51,10 @@ def hot_gather(
     if cold_capacity < 0:
         raise ValueError(f"cold_capacity must be >= 0, got {cold_capacity}")
 
-    out = hot_gather_hot_part(table[:hot_size], idx)
-
-    # --- bounded cold fixup: the first cold_capacity cold indices, in order ---
-    cold_pos = torch.nonzero(idx >= hot_size).squeeze(1)[:cold_capacity]
-    if cold_pos.numel():
-        cold_idx = idx[cold_pos]
-        rows = table.index_select(0, cold_idx.clamp(max=n - 1))
-        rows = torch.where((cold_idx >= n)[:, None], float("nan"), rows)
-        out.index_copy_(0, cold_pos, rows)
+    # inclusive rank of each cold index in flat order (the JAX package's pos + 1)
+    rank = (torch.cumsum(idx >= hot_size, 0, dtype=torch.int32)
+            if cold_capacity < e else None)
+    out = hot_gather_two_tier(table, idx, hot_size, rank, cold_capacity)
     return out.view(e) if prop.dim() == 1 else out
 
 

@@ -63,6 +63,75 @@ def test_k1_semantics(cuda):
         assert torch.equal(a.nan_to_num(), b.nan_to_num())
 
 
+def same_bits(a, b):
+    """Equal values with NaN in the same places."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        a.nan_to_num(nan=0.0), b.nan_to_num(nan=0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d", [1, 3, 4, 8, 64, 130, 257])
+@pytest.mark.parametrize("e,offset", [(5001, 0), (4099, 1), (0, 0)],
+                         ids=["E not a multiple of 4", "idx not 16-byte aligned", "E=0"])
+def test_k1_layouts_and_two_tier_match_plain(cuda, d, e, offset, dtype):
+    """K1 at each row layout, in its hot-part and two-tier modes (with and
+    without cold ranks), bit for bit against the plain versions."""
+    n, hot = 1000, 256
+    prop, idx = make_inputs(n, d, e + offset, hot)
+    idx[::37] = n + 5                                   # >= N
+    table = torch.as_tensor(prop).to(DTYPES[dtype]).to(cuda)
+    idx_t = torch.as_tensor(idx).to(cuda)[offset:]      # idx[1:]: a view off 16-byte alignment
+    assert idx_t.is_contiguous() and (idx_t.data_ptr() % 16 != 0) == (offset == 1)
+    rank = torch.cumsum(idx_t >= hot, 0, dtype=torch.int32)
+    before = kernels.hot_gather_hot_part.launches
+    hot_t = table[:hot]
+    got = kernels.hot_gather_hot_part(hot_t, idx_t)
+    assert torch.equal(got, ref.hot_gather_ref(hot_t, idx_t))
+    for r, cap in ((None, 0), (rank, 0), (rank, 100), (rank, e)):
+        got = kernels.hot_gather_two_tier(table, idx_t, hot, r, cap)
+        want = ref.hot_gather_two_tier_ref(table, idx_t, hot, r, cap)
+        assert got.shape == (e, d) and got.dtype == table.dtype
+        assert same_bits(got, want), (r is not None, cap)
+    torch.cuda.synchronize()
+    assert kernels.hot_gather_hot_part.launches == before + (5 if e else 0)
+
+
+@pytest.mark.cuda
+def test_hot_gather_makes_no_host_sync(cuda):
+    """ops.hot_gather is one K1 launch and no host sync at the default
+    capacity, and a scan plus that launch, still without a sync, below it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prop, idx = make_inputs(5000, 8, 20000, 1024)
+    idx[::53] = 5000
+    table, idx_t = torch.as_tensor(prop).to(cuda), torch.as_tensor(idx).to(cuda)
+    column = table[:, 0].contiguous()
+    ops.hot_gather(table, idx_t, hot_size=1024)          # build and load the kernel
+    torch.cuda.synchronize()
+    before = kernels.hot_gather_hot_part.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        full = ops.hot_gather(table, idx_t, hot_size=1024)
+        capped = ops.hot_gather(table, idx_t, hot_size=1024, cold_capacity=1000)
+        flat = ops.hot_gather(column, idx_t, hot_size=1024)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.hot_gather_hot_part.launches == before + 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.hot_gather(table, idx_t, hot_size=1024)
+        torch.cuda.synchronize()
+    on_card = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1, on_card
+    cpu_t, cpu_i = torch.as_tensor(prop), torch.as_tensor(idx)
+    assert same_bits(full.cpu(), ops.hot_gather(cpu_t, cpu_i, hot_size=1024))
+    assert same_bits(capped.cpu(), ops.hot_gather(cpu_t, cpu_i, hot_size=1024,
+                                                  cold_capacity=1000))
+    assert same_bits(flat.cpu(), ops.hot_gather(cpu_t[:, 0].contiguous(), cpu_i,
+                                                hot_size=1024))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_k2_matches_plain(cuda, dtype):

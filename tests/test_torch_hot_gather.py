@@ -43,6 +43,8 @@ def both(prop, idx, dtype):
         (5000, 64, 8192, 1024),
         (300, 130, 2048, 300),    # d not lane-aligned; hot == n (all hot)
         (4096, 16, 2048, 64),     # tiny hot region
+        (600, 1, 1001, 128),      # one column (PageRank's layout), E not a multiple of 4
+        (600, 3, 1001, 128),      # rows of no 16-byte multiple
     ],
 )
 def test_hot_gather_sweep(n, d, e, hot, dtype):
@@ -71,7 +73,7 @@ def test_hot_gather_cold_fixup(n, d, e, hot, cap, lo):
                                                          cold_capacity=cap)), as_np(want))
 
 
-@pytest.mark.parametrize("cap", [None, 1, 3])
+@pytest.mark.parametrize("cap", [None, 0, 1, 3, 9])
 def test_hot_gather_semantics(cap):
     """-1 gives zeros (jnp.take would wrap), >= N gives NaN, cold past the
     capacity gives zeros; a (N,) property gives (E,)."""
@@ -88,6 +90,96 @@ def test_hot_gather_semantics(cap):
                             hot_size=2, cold_capacity=cap)
     assert got1.shape == (idx.shape[0],)
     np.testing.assert_array_equal(as_np(got1), want[:, 1])
+
+
+STREAMS = ("mixed", "all_hot", "all_cold", "past_n", "hot_size_0")
+CAPS = (None, 0, 1, "middle", "E")
+
+
+def make_stream(kind, n=600, e=1001, hot=128, seed=5):
+    """(idx, hot_size) of one kind: mixed = hot, cold, negative and >= N
+    indices (70% hot); all_hot; all_cold; past_n = every index >= N;
+    hot_size_0 = the mixed stream with an empty hot region."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-3, n + 20, e)
+    idx = np.where((idx >= 0) & (rng.random(e) < 0.7), idx % hot, idx)
+    idx = {"all_hot": rng.integers(0, hot, e), "all_cold": rng.integers(hot, n, e),
+           "past_n": rng.integers(n, n + 50, e)}.get(kind, idx)
+    return idx.astype(np.int32), 0 if kind == "hot_size_0" else hot
+
+
+def capacity(cap, idx, hot):
+    cold = int((idx >= hot).sum())
+    return {"middle": cold // 2, "E": idx.shape[0]}.get(cap, cap)
+
+
+def jax_hot_gather(prop, idx, hot, cap, jd):
+    """The JAX package's ops.hot_gather. Its Pallas hot block cannot be
+    empty, so hot = 0 goes through an equal call: one row in front of the
+    table that no index names, hot_size 1, and every index >= 0 moved up by
+    one (the same cold indices in the same order, >= N still past the end)."""
+    if hot == 0:
+        prop = np.concatenate([np.zeros_like(prop[:1]), prop])
+        idx, hot = np.where(idx >= 0, idx + 1, idx).astype(np.int32), 1
+    return as_np(j_ops.hot_gather(jnp.asarray(prop, dtype=jd), jnp.asarray(idx), hot_size=hot,
+                                  cold_capacity=cap))
+
+
+@pytest.mark.parametrize("cap", CAPS)
+@pytest.mark.parametrize("stream", STREAMS)
+def test_two_tier_streams_match_jax(stream, cap):
+    """One K1 launch over both tiers (its plain version on the CPU), alone
+    and as ops.hot_gather, against the JAX package's kernel + cold fixup,
+    bit for bit with NaN in the same places."""
+    idx, hot = make_stream(stream)
+    cap = capacity(cap, idx, hot)
+    prop = np.random.default_rng(6).standard_normal((600, 8)).astype(np.float32)
+    want = jax_hot_gather(prop, idx, hot, cap, jnp.float32)
+    tp, ti = torch.as_tensor(prop), torch.as_tensor(idx)
+    np.testing.assert_array_equal(as_np(t_ops.hot_gather(tp, ti, hot_size=hot,
+                                                         cold_capacity=cap)), want)
+    c = idx.shape[0] if cap is None else cap
+    rank = torch.cumsum(ti >= hot, 0, dtype=torch.int32)
+    got = t_kernels.hot_gather_two_tier(tp, ti, hot, rank, c)
+    np.testing.assert_array_equal(as_np(got), want)
+    if c >= idx.shape[0]:  # no capacity bound: the one launch needs no ranks
+        np.testing.assert_array_equal(as_np(t_kernels.hot_gather_two_tier(tp, ti, hot)), want)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d", [1, 3, 8, 64])
+def test_two_tier_layouts_match_jax(d, dtype):
+    """The two-tier route at each of K1's row layouts and both dtypes, for
+    every capacity; d = 1 also as a (N,) property, which gives (E,)."""
+    idx, hot = make_stream("mixed", seed=7)
+    prop = np.random.default_rng(8).standard_normal((600, d)).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    tp, ti = torch.as_tensor(prop).to(td), torch.as_tensor(idx)
+    for cap in CAPS:
+        cap = capacity(cap, idx, hot)
+        want = jax_hot_gather(prop, idx, hot, cap, jd)
+        got = t_ops.hot_gather(tp, ti, hot_size=hot, cold_capacity=cap)
+        assert got.dtype == td and got.shape == (idx.shape[0], d)
+        np.testing.assert_array_equal(as_np(got), want)
+        if d == 1:
+            flat = t_ops.hot_gather(tp[:, 0].contiguous(), ti, hot_size=hot, cold_capacity=cap)
+            assert flat.shape == (idx.shape[0],)
+            np.testing.assert_array_equal(as_np(flat), want[:, 0])
+
+
+def test_two_tier_checks_inputs():
+    table = torch.zeros((8, 4))
+    idx = torch.zeros(16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="hot_size"):
+        t_kernels.hot_gather_two_tier(table, idx, 9)
+    with pytest.raises(ValueError, match="cold_rank"):
+        t_kernels.hot_gather_two_tier(table, idx, 4, idx[:8].contiguous(), 1)
+    with pytest.raises(ValueError, match="int32"):
+        t_kernels.hot_gather_two_tier(table, idx, 4, idx.long(), 1)
+    with pytest.raises(ValueError, match="cold_capacity"):
+        t_kernels.hot_gather_two_tier(table, idx, 4, idx, -1)
+    with pytest.raises(TypeError):
+        t_kernels.hot_gather_two_tier(table.double(), idx, 4)
 
 
 def test_hot_gather_default_hot_size_and_1d_route():
