@@ -15,16 +15,21 @@ Phases, each of which must pass:
      and the -1 / >= N / cold-overflow / 1-D semantics; the two-tier route
      at real size under CUDA's sync debug mode (no host sync);
   3. K2 (fused gather + segment-sum) against its plain version
-     (rtol = atol = 1e-5: the summation order differs), and its own path,
-     the aligned pull sum, against the engine's pull;
+     (rtol = atol = 1e-5: the summation order differs) on the layout's
+     sorted tiles and on tiles shuffled within themselves, two launches
+     bit-identical, and its own path, the aligned pull sum, against the
+     engine's pull;
   4. the quickstart pipeline (examples/quickstart_torch.main("cuda")) with
      PageRank through K1 and the paper's orderings;
   5. PageRank at real size (``lj`` at scale 22: 4.19M vertices) through K1
      against PageRank with the plain gather on the card, six runs of each;
-  6. K3 (hot embedding bag) against its plain version, bit for bit, at the
-     JAX package's sweep shapes, all-masked, and MIND's serve_p99 and
+  6. K3 (hot embedding bag) against its plain versions, bit for bit, in
+     its hot-part and two-tier modes (the latter without and with cold
+     ranks, on bags with -1 and >= V ids mixed in): the JAX package's
+     sweep shapes (f32, and bf16), all-masked, and MIND's serve_p99 and
      serve_bulk (Zipf 1.1 ids, 0.9 mask, the L2-sized hot prefix); then
-     K3's own path, ops.hot_bag at serve_bulk, against bag_ref (1e-5);
+     K3's own path, ops.hot_bag at serve_bulk, one launch under CUDA's sync
+     debug mode (no host sync), against bag_ref (1e-5);
   7. MIND at full width (2^21 x 64 f32 items): serve_scores through K1
      against the plain route at serve_p99, and retrieval_scores at
      retrieval_cand (2^18 hot rows, overflowing cold refs) against the
@@ -38,9 +43,10 @@ Phases, each of which must pass:
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
-time by torch.profiler, and host microseconds per call. K1's are those of
-the mode the path launches: two-tier where it goes through ops.hot_gather
-(the quickstart, PageRank, serve_scores), hot part in the serve cache.
+time by torch.profiler, and host microseconds per call. K1's and K3's are
+those of the mode the path launches: two-tier where it goes through
+ops.hot_gather or ops.hot_bag (the quickstart, PageRank, serve_scores, the
+bag), hot part in the serve cache.
 Then one JSON line of per-kernel numbers, the card line again, and the
 final {"ok": true, ...} line. It exits non-zero, printing no result, when
 CUDA is unavailable or the repository's sources are missing.
@@ -344,20 +350,28 @@ def k1_numbers(path: str, mix: list, counts: list[int], err: float, two_tier: bo
         res["hot_part_bound_ms"] = bound(hot_bytes)[0]
     res.update(max_abs_err=err, launches=total, shape="; ".join(shapes))
 
-    def fmt(v):
-        return "not measured" if v is None else f"{v:.4f} ms"
-
     hot_part = (f", hot-part mode {res['hot_part_ms']:.4f} ms (device "
-                f"{fmt(res['hot_part_device_ms'])}, bound {res['hot_part_bound_ms']:.4f} ms)"
+                f"{fmt_ms(res['hot_part_device_ms'])}, bound {res['hot_part_bound_ms']:.4f} ms)"
                 if two_tier else "")
     print(f"K1 timing on {path} ({res['shape']}), per launch: {res['mode']} mode "
-          f"{res['ms']:.4f} ms (device {fmt(res['device_ms'])}, host {res['host_us']:.2f} "
+          f"{res['ms']:.4f} ms (device {fmt_ms(res['device_ms'])}, host {res['host_us']:.2f} "
           f"us/call), plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms{hot_part}; "
           f"index_select of the full table {res['library_ms']:.4f} ms (device "
-          f"{fmt(res['library_device_ms'])}, host {res['library_host_us']:.2f} us/call); "
-          f"ops.hot_gather {res['op_ms']:.4f} ms (device {fmt(res['op_device_ms'])}, host "
+          f"{fmt_ms(res['library_device_ms'])}, host {res['library_host_us']:.2f} us/call); "
+          f"ops.hot_gather {res['op_ms']:.4f} ms (device {fmt_ms(res['op_device_ms'])}, host "
           f"{res['op_host_us']:.2f} us/call, bound {res['op_bound_ms']:.4f} ms)")
     return res
+
+
+def timed(prefix: str, fn, reps: int = 20, calls: int = 200) -> dict:
+    """``{prefix}ms`` (CUDA events), ``{prefix}device_ms`` (torch.profiler)
+    and ``{prefix}host_us`` (host microseconds per call) of ``fn``."""
+    return {f"{prefix}ms": time_ms(fn, reps), f"{prefix}device_ms": device_ms(fn, reps),
+            f"{prefix}host_us": host_us(fn, calls)}
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 def check_k2(dev) -> dict:
@@ -374,20 +388,31 @@ def check_k2(dev) -> dict:
     idx_np, seg_np, n_pad = ops.build_aligned_edges(g.indptr, g.indices, spt, tile_e)
     if idx_np.shape[0] // tile_e * spt != n_pad:
         fail("K2: the uniform graph's layout spills tiles (the reference would reject it)")
-    idx, seg = torch.as_tensor(idx_np).to(dev), torch.as_tensor(seg_np).to(dev)
+    # the same edges with each tile shuffled within itself: any order gives the sum
     rng = np.random.default_rng(1)
+    tiles = idx_np.shape[0] // tile_e
+    perm = (np.arange(tiles)[:, None] * tile_e
+            + rng.random((tiles, tile_e)).argsort(axis=1)).reshape(-1)
+    layouts = {"sorted": (idx_np, seg_np), "shuffled": (idx_np[perm], seg_np[perm])}
+    layouts = {k: (torch.as_tensor(i).to(dev), torch.as_tensor(s).to(dev))
+               for k, (i, s) in layouts.items()}
+    idx, seg = layouts["sorted"]
     prop = torch.as_tensor(rng.standard_normal((g.num_nodes, d)), dtype=torch.float32).to(dev)
     err = 0.0
     for label, hot in (("f32 all hot", prop), ("bf16 hot half", prop[: g.num_nodes // 2]
                                                  .to(torch.bfloat16).contiguous())):
-        out = hot_gather_segment_sum(hot, idx, seg, n_pad, tile_e, spt)
-        plain = ref.gather_segment_sum_ref(hot, idx, seg, n_pad, tile_e, spt)
-        torch.cuda.synchronize()
-        if not torch.allclose(out, plain, rtol=1e-5, atol=1e-5):
-            fail(f"K2 {label}: differs from its plain version")
-        err = max(err, float((out - plain).abs().max()))
-        print(f"K2 {label}: {n_pad} segments, {idx.shape[0] // tile_e} tiles, "
-              f"max abs err {err:.3e}")
+        for order, (o_idx, o_seg) in layouts.items():
+            out = hot_gather_segment_sum(hot, o_idx, o_seg, n_pad, tile_e, spt)
+            again = hot_gather_segment_sum(hot, o_idx, o_seg, n_pad, tile_e, spt)
+            plain = ref.gather_segment_sum_ref(hot, o_idx, o_seg, n_pad, tile_e, spt)
+            torch.cuda.synchronize()
+            if not torch.allclose(out, plain, rtol=1e-5, atol=1e-5):
+                fail(f"K2 {label}, {order} tiles: differs from its plain version")
+            if not torch.equal(out, again):
+                fail(f"K2 {label}, {order} tiles: two launches differ")
+            err = max(err, float((out - plain).abs().max()))
+            print(f"K2 {label}, {order} tiles: {n_pad} segments, {tiles} tiles, max abs err "
+                  f"{err:.3e}, two launches bit-identical")
 
     # K2's own path: the aligned pull sum, held against the engine's pull
     dg = g.device(dev)
@@ -408,16 +433,21 @@ def check_k2(dev) -> dict:
     adj = torch.sparse_coo_tensor(
         torch.stack([seg[idx >= 0].long(), hits.long()]),
         torch.ones(hits.numel(), device=dev), (n_pad, g.num_nodes)).coalesce().to_sparse_csr()
+    s_idx, s_seg = layouts["shuffled"]
     res = dict(
-        ms=time_ms(lambda: hot_gather_segment_sum(prop, idx, seg, n_pad, tile_e, spt)),
+        **timed("", lambda: hot_gather_segment_sum(prop, idx, seg, n_pad, tile_e, spt)),
         plain_ms=time_ms(lambda: ref.gather_segment_sum_ref(prop, idx, seg, n_pad, tile_e, spt)),
-        library_ms=time_ms(lambda: torch.sparse.mm(adj, prop)),
+        **timed("library_", lambda: torch.sparse.mm(adj, prop)),
+        shuffled_ms=time_ms(lambda: hot_gather_segment_sum(prop, s_idx, s_seg, n_pad, tile_e,
+                                                           spt)),
         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, launches=launches,
         shape=f"uniform scale 20 degree 6, hot ({g.num_nodes}, {d}) f32, E={e} padded",
     )
-    print(f"K2 timing at {res['shape']}: kernel {res['ms']:.4f} ms, plain "
-          f"{res['plain_ms']:.4f} ms, torch.sparse.mm {res['library_ms']:.4f} ms, "
-          f"bound {bound_ms:.4f} ms")
+    print(f"K2 timing at {res['shape']}: kernel {res['ms']:.4f} ms (device "
+          f"{fmt_ms(res['device_ms'])}, host {res['host_us']:.2f} us/call), shuffled tiles "
+          f"{res['shuffled_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, torch.sparse.mm "
+          f"{res['library_ms']:.4f} ms (device {fmt_ms(res['library_device_ms'])}), bound "
+          f"{bound_ms:.4f} ms")
     return res
 
 
@@ -510,8 +540,9 @@ def run_real_pagerank(dev, g2) -> int:
 
 
 def check_k3(dev, items) -> dict:
-    """Phase 6: K3 against its plain version, bit for bit, then its own
-    path (ops.hot_bag) at serve_bulk against bag_ref. Returns K3's entry."""
+    """Phase 6: K3 in both modes against its plain versions, bit for bit,
+    then its own path (ops.hot_bag) at serve_bulk with no host sync and
+    against bag_ref. Returns K3's entry."""
     import numpy as np
     import torch
 
@@ -519,7 +550,10 @@ def check_k3(dev, items) -> dict:
     from repro_torch.core.plan import default_budget_bytes, entries_for_budget
     from repro_torch.data.pipeline import zipf_ids
     from repro_torch.kernels.embedding_bag import ops, ref
-    from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
+    from repro_torch.kernels.embedding_bag.embedding_bag import (
+        hot_bag_hot_part,
+        hot_bag_two_tier,
+    )
 
     cfg = get_arch("mind")
     rng = np.random.default_rng(2)
@@ -527,26 +561,29 @@ def check_k3(dev, items) -> dict:
                                   max_entries=cfg.n_items)
     print(f"K3 hot prefix: {hot_size} rows of d={cfg.embed_dim} f32 (L2 "
           f"{default_budget_bytes()} bytes)")
-    cases = []
+    cases = []  # (label, whole table, hot rows, ids, mask)
     for v, d, b, h, hot in [(2000, 16, 512, 8, 256), (5000, 64, 300, 12, 512),
                             (1000, 100, 64, 4, 1000)]:   # tests/test_kernels.py sweep
         table = torch.as_tensor(rng.standard_normal((v, d)), dtype=torch.float32).to(dev)
         ids = rng.integers(0, v, (b, h))
         ids = np.where(rng.random((b, h)) < 0.8, ids % hot, ids).astype(np.int32)
         mask = rng.random((b, h)) < 0.9
-        cases.append((f"sweep V={v} d={d} B={b} H={h} hot={hot}", table[:hot],
+        cases.append((f"sweep V={v} d={d} B={b} H={h} hot={hot}", table, hot,
                       torch.as_tensor(ids).to(dev), torch.as_tensor(mask).to(dev)))
         if v == 2000:
-            cases.append(("all masked", table[:hot], cases[-1][2],
-                          torch.zeros_like(cases[-1][3])))
+            cases.append(("all masked", table, hot, cases[-1][3],
+                          torch.zeros_like(cases[-1][4])))
+            cases.append(("sweep V=2000 bf16", table.to(torch.bfloat16), hot, cases[-2][3],
+                          cases[-2][4]))
     for name in ("serve_p99", "serve_bulk"):
         # Zipf-1.1 histories with a 0.9 keep mask, as recsys_batch draws them
         shape = (RECSYS_SHAPES[name].batch, cfg.hist_len)
         ids = torch.as_tensor(zipf_ids(rng, shape, cfg.n_items, a=1.1)).to(dev)
         mask = torch.as_tensor(rng.random(shape) < 0.9).to(dev)
-        cases.append((f"MIND {name}", items[:hot_size], ids, mask))
+        cases.append((f"MIND {name}", items, hot_size, ids, mask))
     err = 0.0
-    for label, hot, ids, mask in cases:
+    for label, table, hot_rows, ids, mask in cases:
+        hot = table[:hot_rows]
         out = hot_bag_hot_part(hot, ids, mask)
         plain = ref.hot_bag_ref(hot, ids, mask)
         torch.cuda.synchronize()
@@ -555,48 +592,94 @@ def check_k3(dev, items) -> dict:
         if label == "all masked" and float(out.abs().max()) != 0.0:
             fail("K3 all masked: not exact zeros")
         err = max(err, float((out - plain).abs().max()))
-        print(f"K3 {label}: B={ids.shape[0]} H={ids.shape[1]} d={hot.shape[1]} "
-              f"hot={hot.shape[0]} bit-identical")
+        # the two-tier mode over the whole table, with negative and >= V ids
+        # mixed in, without and with cold ranks (half the cold pairs kept)
+        mixed = ids.clone()
+        mixed[::7, 0] = -1
+        mixed[1::11, -1] = table.shape[0] + 5
+        mixed_mask = mask.clone()
+        mixed_mask[1::11, -1] = True
+        rank = torch.cumsum((mixed_mask & (mixed >= hot_rows)).view(-1), 0,
+                            dtype=torch.int32).view(mixed.shape)
+        cap = int(rank[-1, -1]) // 2
+        for r, c in ((None, 0), (rank, cap)):
+            two = hot_bag_two_tier(table, mixed, mixed_mask, hot_rows, r, c)
+            two_plain = ref.hot_bag_two_tier_ref(table, mixed, mixed_mask, hot_rows, r, c)
+            torch.cuda.synchronize()
+            if not same_bits(two, two_plain):
+                fail(f"K3 two-tier {label} (cold capacity {c if r is not None else 'B*H'}): "
+                     f"differs from its plain version")
+            diff = (two - two_plain).nan_to_num(nan=0.0)
+            err = max(err, float(diff.abs().max()))
+        print(f"K3 {label}: B={ids.shape[0]} H={ids.shape[1]} d={table.shape[1]} "
+              f"{str(table.dtype)[6:]} hot={hot_rows} bit-identical; two-tier over "
+              f"V={table.shape[0]} bit-identical, and with cold capacity {cap} of "
+              f"{int(rank[-1, -1])}")
+    del two, two_plain, mixed, mixed_mask, rank
 
-    # K3's own path: the fused bag with its cold fixup at serve_bulk (the last case)
+    # K3's own path: ops.hot_bag at serve_bulk (the last case), no host sync
     hot_bag_hot_part.launches = 0
-    got = ops.hot_bag(items, ids, mask, hot_size=hot_size)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.hot_bag(items, ids, mask, hot_size=hot_size)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     launches = hot_bag_hot_part.launches
     want = ref.bag_ref(items, ids, mask)
     path_err = float((got - want).abs().max())
     close = torch.allclose(got, want, rtol=1e-5, atol=1e-5)
     del want
-    print(f"K3 path (ops.hot_bag at serve_bulk) vs bag_ref: max abs err {path_err:.3e}, "
-          f"launches {launches}")
-    if launches < 1:
-        fail("K3 path: ops.hot_bag did not launch K3")
+    print(f"K3 path (ops.hot_bag at serve_bulk, sync debug mode 'error') vs bag_ref: max abs "
+          f"err {path_err:.3e}, launches {launches}")
+    if launches != 1:
+        fail(f"K3 path: ops.hot_bag launched K3 {launches} times, not once")
     if not close:
         fail(f"K3 path: ops.hot_bag differs from bag_ref by {path_err:.3e}")
 
     hot = items[:hot_size]
-    hit = mask & (ids >= 0) & (ids < hot_size)
     b, hlen = ids.shape
-    d = hot.shape[1]
-    rows = torch.unique(ids[hit]).numel()
-    refs = int(hit.sum())
-    bound_ms, bound_by = bound(b * hlen * 5 + b * d * 4 + rows * d * 4, refs * d)
-    lib_ids = ids.clamp(0, hot_size - 1)
-    weights = hit.float()
+    v, d = items.shape
+    hit = mask & (ids >= 0) & (ids < hot_size)
+    live = mask & (ids >= 0) & (ids < v)
+    n_cold = int((mask & (ids >= hot_size)).sum())
+    hot_distinct, all_distinct = torch.unique(ids[hit]).numel(), torch.unique(ids[live]).numel()
+    refs, all_refs = int(hit.sum()), int(live.sum())
+    streams = b * hlen * 5 + b * d * 4  # ids and mask read once, the bags written once
+    bound_ms, bound_by = bound(streams + all_distinct * d * 4, all_refs * d)
+    hot_bound_ms = bound(streams + hot_distinct * d * 4, refs * d)[0]
+    cap = n_cold // 2
     res = dict(
-        ms=time_ms(lambda: hot_bag_hot_part(hot, ids, mask)),
-        plain_ms=time_ms(lambda: ref.hot_bag_ref(hot, ids, mask), reps=5, warmup=1),
-        library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
-            lib_ids, hot, mode="sum", per_sample_weights=weights)),
-        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, launches=launches,
-        shape=f"serve_bulk: {b} bags x {hlen}, hot ({hot_size}, {d}) f32 of "
-              f"{items.shape[0]} rows, {refs} hot references to {rows} rows "
-              f"({refs / (b * hlen):.4f} of positions)",
+        mode="two-tier",
+        **timed("", lambda: hot_bag_two_tier(items, ids, mask, hot_size)),
+        plain_ms=time_ms(lambda: ref.hot_bag_two_tier_ref(items, ids, mask, hot_size),
+                         reps=5, warmup=1),
+        **timed("library_", lambda: torch.nn.functional.embedding_bag(
+            ids.clamp(0, v - 1), items, mode="sum", per_sample_weights=mask.float())),
+        **timed("hot_part_", lambda: hot_bag_hot_part(hot, ids, mask)),
+        hot_part_library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
+            ids.clamp(0, hot_size - 1), hot, mode="sum", per_sample_weights=hit.float())),
+        **timed("op_", lambda: ops.hot_bag(items, ids, mask, hot_size=hot_size)),
+        **timed("op_capped_", lambda: ops.hot_bag(items, ids, mask, hot_size=hot_size,
+                                                  cold_capacity=cap)),
+        bound_ms=bound_ms, bound_by=bound_by, hot_part_bound_ms=hot_bound_ms,
+        op_bound_ms=bound_ms, max_abs_err=err, launches=launches,
+        shape=f"serve_bulk: {b} bags x {hlen} of ({v}, {d}) f32, hot {hot_size} rows; "
+              f"{refs} hot references to {hot_distinct} rows, {all_refs - refs} cold to "
+              f"{all_distinct - hot_distinct} rows ({refs / (b * hlen):.4f} / "
+              f"{(all_refs - refs) / (b * hlen):.4f} of positions); capped route: "
+              f"{cap} of {n_cold} cold pairs",
     )
-    op_ms = time_ms(lambda: ops.hot_bag(items, ids, mask, hot_size=hot_size), reps=5, warmup=1)
-    print(f"K3 timing at {res['shape']}: kernel {res['ms']:.4f} ms, plain "
-          f"{res['plain_ms']:.4f} ms, embedding_bag {res['library_ms']:.4f} ms, "
-          f"ops.hot_bag (K3 + cold fixup) {op_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"row reads {refs * d * 4 / 1e9:.3f} GB")
+    print(f"K3 timing at {res['shape']}: two-tier {res['ms']:.4f} ms (device "
+          f"{fmt_ms(res['device_ms'])}, host {res['host_us']:.2f} us/call), bound "
+          f"{bound_ms:.4f} ms ({bound_by}), plain {res['plain_ms']:.4f} ms, embedding_bag of "
+          f"the whole table {res['library_ms']:.4f} ms (device "
+          f"{fmt_ms(res['library_device_ms'])}); hot part {res['hot_part_ms']:.4f} ms (device "
+          f"{fmt_ms(res['hot_part_device_ms'])}, host {res['hot_part_host_us']:.2f} us/call), "
+          f"bound {hot_bound_ms:.4f} ms, embedding_bag of the hot prefix "
+          f"{res['hot_part_library_ms']:.4f} ms; ops.hot_bag {res['op_ms']:.4f} ms (device "
+          f"{fmt_ms(res['op_device_ms'])}, host {res['op_host_us']:.2f} us/call), with a "
+          f"capacity {res['op_capped_ms']:.4f} ms (device {fmt_ms(res['op_capped_device_ms'])}"
+          f"); row reads {all_refs * d * 4 / 1e9:.3f} GB")
     return res
 
 

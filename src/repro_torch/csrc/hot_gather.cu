@@ -13,7 +13,7 @@
 // hot rows from device memory after they were evicted from L2, and, at the
 // small launches of the serving cache, the fixed cost of a launch.
 //
-// What the design does about it: the TPU kernel pinned the hot prefix in
+// What K1's design does about it: the TPU kernel pinned the hot prefix in
 // VMEM as a constant-index block and left the cold rows to a separate
 // fixup pass over HBM. Hopper has no software-managed memory of that size,
 // but both tiers live in one device memory behind a 50 MB L2 that takes
@@ -45,14 +45,19 @@
 // No padding of d or E: the TPU's 128-lane padding would multiply the
 // bytes by 128 for d = 1.
 //
+// K2's design is set out above gather_segsum_kernel.
+//
 // C interface for ctypes: every entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kLoads = 8;  // K2: row loads a lane issues before it adds them
 
 __device__ __forceinline__ uint64_t evict_last_policy() {
   uint64_t policy;
@@ -87,10 +92,31 @@ __device__ __forceinline__ uint4 ld_hot(const uint4* p, uint64_t policy) {
   return v;
 }
 
-// Raw bits -> float: f32 as is, bf16 as the upper half of an f32.
-__device__ __forceinline__ float to_float(uint32_t bits) { return __uint_as_float(bits); }
-__device__ __forceinline__ float to_float(uint16_t bits) {
-  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
+// Add one loaded piece of a row to float32 accumulators: a 16-byte slice
+// of four f32 or eight bf16 (element 2i in the low half of word i), or one
+// element. bf16 widens to f32 exactly.
+__device__ __forceinline__ void add_to(float (&acc)[4], uint4 v, uint32_t) {
+  acc[0] += __uint_as_float(v.x);
+  acc[1] += __uint_as_float(v.y);
+  acc[2] += __uint_as_float(v.z);
+  acc[3] += __uint_as_float(v.w);
+}
+
+__device__ __forceinline__ void add_to(float (&acc)[8], uint4 v, uint16_t) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc[2 * i] += __uint_as_float(w[i] << 16);
+    acc[2 * i + 1] += __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void add_to(float (&acc)[1], uint32_t v, uint32_t) {
+  acc[0] += __uint_as_float(v);
+}
+
+__device__ __forceinline__ void add_to(float (&acc)[1], uint16_t v, uint16_t) {
+  acc[0] += __uint_as_float(static_cast<uint32_t>(v) << 16);
 }
 
 // The quiet NaN that torch writes for float("nan"), as raw bits.
@@ -177,52 +203,126 @@ __global__ void __launch_bounds__(kThreads) gather_scalar_kernel(
 
 // K2: fused hot gather + destination segment-sum over the aligned layout of
 // ops.build_aligned_edges. Block b owns edge tile b and the output rows
-// [b*spt, (b+1)*spt); no other block writes them, so there are no atomics.
-// Edges are CSR-sorted by destination within a tile (padding, idx = -1,
-// follows), so thread (s, c) sums its segment's run in edge order: the
-// result is deterministic. A pass over the tile first records, per local
-// segment, the first and last edge that names it; the sum then walks only
-// that range and skips edges of other segments, which keeps it exact for
-// any order of the tile's edges.
-template <typename W>
-__global__ void gather_segsum_kernel(const W* __restrict__ hot, const int32_t* __restrict__ idx,
-                                     const int32_t* __restrict__ seg, float* __restrict__ out,
-                                     int32_t tile_e, int32_t spt, int32_t d, int32_t H) {
+// [b*spt, (b+1)*spt); no other block writes them, so there are no atomics
+// on device memory. Edge k of the tile belongs to local segment
+// key[k] = seg[k] - b*spt, or to none (key spt) when it is padding (idx < 0)
+// or names another block's segment; an edge whose row is not hot (idx >= H)
+// keeps its key and adds nothing.
+//
+// What bounds it: bytes, as for K1 (one add per gathered element). The
+// earlier form of this kernel sat at ~10x its bound: a staging pass with
+// shared-memory atomics on every edge, one (segment, column) pair a thread
+// so that lanes of short runs idled, 4-byte loads, and one row load in
+// flight a thread, each behind the last.
+//
+// The tile is staged in shared memory with its keys, and one block-wide
+// vote says whether the keys are sorted, as the layout builds them (CSR
+// order, padding last). Sorted: segment s's edges are the run
+// [lo[s], lo[s+1]), and each lo[s] is found from its neighbours, by the one
+// edge k with key[k-1] < s <= key[k]: one writer each, no atomics. Any
+// other order, which the contract allows as the TPU's one-hot product does,
+// takes the same kernel's other branch: the first and one-past-last edge of
+// each segment by shared-memory atomicMin/atomicMax, and a walk over that
+// range that skips edges of other segments.
+//
+// Then a group of L lanes owns a segment, lane g the row's 16-byte slices
+// g, g + L, ... (2 lanes at d = 8 f32, 1 at d = 8 bf16). The group walks
+// the segment's range kLoads edges at a time: it reads their indices from
+// shared memory, issues all kLoads row loads into registers, then adds them
+// in edge order. So each lane has several row loads in flight, the sum is
+// taken in edge order on either branch, and the result is deterministic.
+//
+// Not wgmma: the TPU kernel's one-hot (spt x tile_e) @ (tile_e x d) product
+// does spt = 256 times the adds the sum needs, and the tensor cores take
+// f32 inputs only as TF32, which keeps about three decimal digits and would
+// break the 1e-5 tolerance against the plain f32 sum.
+template <typename W, int L, bool kVec>
+__global__ void __launch_bounds__(kThreads) gather_segsum_kernel(
+    const W* __restrict__ hot, const int32_t* __restrict__ idx,
+    const int32_t* __restrict__ seg, float* __restrict__ out, int32_t tile_e, int32_t spt,
+    int32_t d, int32_t H) {
+  constexpr int kPer = kVec ? 16 / static_cast<int>(sizeof(W)) : 1;
+  using Piece = typename std::conditional<kVec, uint4, W>::type;
   extern __shared__ int32_t smem[];
-  int32_t* first = smem;             // [spt]
-  int32_t* last = first + spt;       // [spt]
-  int32_t* t_seg = last + spt;       // [tile_e] local segment of each edge
-  int32_t* t_idx = t_seg + tile_e;   // [tile_e]
+  int32_t* t_key = smem;             // [tile_e] local segment of each edge, spt for none
+  int32_t* t_idx = t_key + tile_e;   // [tile_e]
+  int32_t* lo = t_idx + tile_e;      // [spt + 1] first edge of each segment's range
+  int32_t* hi = lo + spt + 1;        // [spt] one past its last edge (unsorted tiles)
 
   const int64_t base = static_cast<int64_t>(blockIdx.x) * tile_e;
-  const int32_t seg0 = blockIdx.x * spt;
-  for (int s = threadIdx.x; s < spt; s += blockDim.x) {
-    first[s] = tile_e;
-    last[s] = -1;
+  const int64_t seg0 = static_cast<int64_t>(blockIdx.x) * spt;
+  for (int k = threadIdx.x; k < tile_e; k += kThreads) {
+    const int32_t v = __ldcs(idx + base + k);
+    const int64_t ls = __ldcs(seg + base + k) - seg0;
+    t_idx[k] = v;
+    t_key[k] = v >= 0 && ls >= 0 && ls < spt ? static_cast<int32_t>(ls) : spt;
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < tile_e; k += blockDim.x) {
-    const int32_t ls = __ldcs(seg + base + k) - seg0;
-    t_seg[k] = ls;
-    t_idx[k] = __ldcs(idx + base + k);
-    if (ls >= 0 && ls < spt) {
-      atomicMin(first + ls, k);
-      atomicMax(last + ls, k);
+  int in_order = 1;
+  for (int k = threadIdx.x + 1; k < tile_e; k += kThreads)
+    in_order &= t_key[k - 1] <= t_key[k];
+  const bool sorted = __syncthreads_and(in_order);
+  if (sorted) {
+    // edge k opens the runs of segments (key[k-1], key[k]]; k = tile_e closes the tile
+    for (int k = threadIdx.x; k <= tile_e; k += kThreads) {
+      const int32_t prev = k == 0 ? -1 : t_key[k - 1];
+      const int32_t cur = k == tile_e ? spt : t_key[k];
+      for (int32_t s = prev + 1; s <= cur; ++s) lo[s] = k;
+    }
+  } else {
+    for (int s = threadIdx.x; s < spt; s += kThreads) {
+      lo[s] = tile_e;
+      hi[s] = 0;
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < tile_e; k += kThreads) {
+      const int32_t s = t_key[k];
+      if (s < spt) {
+        atomicMin(lo + s, k);
+        atomicMax(hi + s, k + 1);
+      }
     }
   }
   __syncthreads();
 
+  const int nslice = d / kPer;  // a row's length in Pieces
+  const Piece* rows = reinterpret_cast<const Piece*>(hot);
   const uint64_t policy = evict_last_policy();
-  for (int p = threadIdx.x; p < spt * d; p += blockDim.x) {
-    const int s = p / d;
-    const int c = p - s * d;
-    float acc = 0.f;
-    for (int k = first[s]; k <= last[s]; ++k) {
-      const int32_t v = t_idx[k];
-      if (t_seg[k] == s && v >= 0 && v < H)
-        acc += to_float(ld_hot(hot + static_cast<int64_t>(v) * d + c, policy));
+  const int g = threadIdx.x % L;
+  for (int s = threadIdx.x / L; s < spt; s += kThreads / L) {
+    const int32_t begin = lo[s];
+    const int32_t end = sorted ? lo[s + 1] : hi[s];
+    for (int c = g; c < nslice; c += L) {
+      float acc[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) acc[k] = 0.f;
+      for (int32_t k0 = begin; k0 < end; k0 += kLoads) {
+        int32_t v[kLoads];
+        Piece x[kLoads];
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          const int32_t k = k0 + u;
+          v[u] = k < end && t_key[k] == s ? t_idx[k] : -1;
+          if (v[u] >= H) v[u] = -1;
+        }
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u)
+          x[u] = v[u] >= 0 ? ld_hot(rows + static_cast<int64_t>(v[u]) * nslice + c, policy)
+                           : Piece{};
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u)
+          if (v[u] >= 0) add_to(acc, x[u], W{});
+      }
+      float* o = out + (seg0 + s) * d + static_cast<int64_t>(c) * kPer;
+      if constexpr (kVec) {
+#pragma unroll
+        for (int k = 0; k < kPer / 4; ++k)
+          __stcs(reinterpret_cast<float4*>(o) + k,
+                 make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]));
+      } else {
+        __stcs(o, acc[0]);
+      }
     }
-    out[static_cast<int64_t>(seg0 + s) * d + c] = acc;
   }
 }
 
@@ -274,18 +374,58 @@ int launch_hot_gather(const void* table, const void* idx_v, const void* rank, vo
   return static_cast<int>(cudaGetLastError());
 }
 
+struct SegsumLaunch {
+  const void* hot;
+  const void* idx;
+  const void* seg;
+  void* out;
+  int32_t num_tiles, tile_e, spt, d, H;
+  size_t smem;
+  cudaStream_t stream;
+};
+
+template <typename W, int L, bool kVec>
+void launch_segsum(const SegsumLaunch& a) {
+  auto* kernel = gather_segsum_kernel<W, L, kVec>;
+  if (a.smem > 48 * 1024)  // beyond the default, dynamic shared memory must be asked for
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(a.smem));
+  kernel<<<a.num_tiles, kThreads, a.smem, a.stream>>>(
+      static_cast<const W*>(a.hot), static_cast<const int32_t*>(a.idx),
+      static_cast<const int32_t*>(a.seg), static_cast<float*>(a.out), a.tile_e, a.spt, a.d,
+      a.H);
+}
+
+template <typename W, bool kVec>
+void launch_segsum_lanes(int lanes, const SegsumLaunch& a) {
+  switch (lanes) {
+    case 1: launch_segsum<W, 1, kVec>(a); break;
+    case 2: launch_segsum<W, 2, kVec>(a); break;
+    case 4: launch_segsum<W, 4, kVec>(a); break;
+    case 8: launch_segsum<W, 8, kVec>(a); break;
+    case 16: launch_segsum<W, 16, kVec>(a); break;
+    default: launch_segsum<W, 32, kVec>(a); break;
+  }
+}
+
 template <typename W>
 int launch_gather_segsum(const void* hot, const void* idx, const void* seg, void* out,
                          int32_t num_tiles, int32_t tile_e, int32_t spt, int32_t d, int32_t H,
                          void* stream) {
-  if (num_tiles > 0) {
-    const size_t smem = (2 * static_cast<size_t>(spt) + 2 * static_cast<size_t>(tile_e)) *
+  if (num_tiles > 0 && d > 0) {
+    const size_t smem = (2 * static_cast<size_t>(tile_e) + 2 * static_cast<size_t>(spt) + 1) *
                         sizeof(int32_t);
-    cudaFuncSetAttribute(gather_segsum_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-    gather_segsum_kernel<W><<<num_tiles, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const W*>(hot), static_cast<const int32_t*>(idx),
-        static_cast<const int32_t*>(seg), static_cast<float*>(out), tile_e, spt, d, H);
+    const SegsumLaunch a{hot, idx, seg, out, num_tiles, tile_e, spt, d, H, smem,
+                         static_cast<cudaStream_t>(stream)};
+    constexpr int kPer = 16 / static_cast<int>(sizeof(W));  // elements in 16 bytes
+    const bool vec = d % kPer == 0 && aligned16(hot) && aligned16(out);
+    const int nslice = vec ? d / kPer : d;
+    int lanes = 1;  // the smallest power of two covering the row's slices, at most a warp
+    while (lanes < nslice && lanes < 32) lanes <<= 1;
+    if (vec)
+      launch_segsum_lanes<W, true>(lanes, a);
+    else
+      launch_segsum_lanes<W, false>(lanes, a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -62,6 +62,21 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))
 
 
+@lru_cache(maxsize=None)
+def stream_query():
+    """A function from a device index to its current CUDA stream's handle,
+    resolved once: the raw query skips building a Stream object on every
+    launch; it is private to torch, so the public query stands in where it
+    is missing."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        def raw(index: int) -> int:
+            return torch.cuda.current_stream(index).cuda_stream
+    return raw
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise for a non-zero ``cudaError_t`` returned by one of ``lib``'s entry points."""
     if rc != 0:

@@ -1,9 +1,9 @@
 """Hot-cached embedding lookup and bag with the bounded cold fixup.
 
-``hot_lookup`` reads rows through the two-tier hot gather (K1 plus its
-cold fixup); ``hot_bag`` sums bags through K3 over the hot prefix, then
-compacts the masked cold (id, bag) pairs, gathers their rows from the full
-table once and adds them to their bags.
+``hot_lookup`` reads rows through the two-tier hot gather (K1 over the whole
+table); ``hot_bag`` sums bags through K3's two-tier mode, hot and cold rows
+in one launch, the JAX package's cold fixup (compact the masked cold pairs,
+gather, segment-sum) folded into the kernel as a second sum per bag.
 """
 from __future__ import annotations
 
@@ -13,8 +13,7 @@ import torch
 
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.plan import GraspPlan
-from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
-from repro_torch.kernels.embedding_bag.ref import lookup_ref
+from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_two_tier
 from repro_torch.kernels.hot_gather.ops import hot_gather
 
 
@@ -42,31 +41,24 @@ def hot_bag(
     hot_size: int,
     cold_capacity: Optional[int] = None,
 ) -> torch.Tensor:
-    """Fused EmbeddingBag(sum) -> ``(B, d)`` float32: K3 sums the hot rows;
-    the masked cold pairs (``id >= hot_size``), the first ``cold_capacity``
-    of them in flat order, are gathered once and added to their bags.
+    """Fused EmbeddingBag(sum) -> ``(B, d)`` float32: one K3 launch over the
+    whole table, bag ``b`` the sum of its hot rows (``id < hot_size``) plus
+    the sum of its masked cold rows, of which only the first
+    ``cold_capacity`` in flat order count.
 
     As in the JAX package: negative ids add nothing, a masked-in id at or
     above ``V`` adds a NaN row, and cold pairs past ``cold_capacity``
-    (default ``B*H``) are dropped. The compaction synchronises with the
-    device (its size comes from the data).
+    (default ``B*H``) are dropped. Below ``B*H`` a device-side scan ranks
+    the cold pairs; there is no host sync.
     """
-    v, d = table.shape
+    v = table.shape[0]
     b, hlen = ids.shape
     hot_size = min(hot_size, v)
     if cold_capacity is None:
         cold_capacity = b * hlen
     if cold_capacity < 0:
         raise ValueError(f"cold_capacity must be >= 0, got {cold_capacity}")
-
-    out = hot_bag_hot_part(table[:hot_size], ids, mask)
-
-    # cold fixup: the first cold_capacity masked cold pairs, in flat order
-    flat_ids = ids.reshape(-1)
-    cold = mask.reshape(-1) & (flat_ids >= hot_size)
-    cold_pos = torch.nonzero(cold).squeeze(1)[:cold_capacity]
-    if cold_pos.numel():
-        rows = lookup_ref(table, flat_ids[cold_pos]).float()
-        fix = torch.zeros_like(out).index_add_(0, cold_pos // hlen, rows)
-        out = out + fix
-    return out
+    # inclusive rank of each cold pair in flat order (the JAX package's pos + 1)
+    rank = (torch.cumsum((mask & (ids >= hot_size)).view(-1), 0, dtype=torch.int32)
+            .view(b, hlen) if cold_capacity < b * hlen else None)
+    return hot_bag_two_tier(table, ids, mask, hot_size, rank, cold_capacity)

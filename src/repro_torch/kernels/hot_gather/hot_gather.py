@@ -53,13 +53,7 @@ def _entry_points():
     lib = _lib()
     entries = {(kernel, dtype): getattr(lib, f"{kernel}_{name}")
                for kernel in ("hot_gather", "gather_segsum") for dtype, name in DTYPES.items()}
-    # the raw query skips building a Stream object on every launch; it is
-    # private to torch, so the public query stands in where it is missing
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
-        def raw(index: int) -> int:
-            return torch.cuda.current_stream(index).cuda_stream
-    return entries, raw
+    return entries, _build.stream_query()
 
 
 def _on_card(table: torch.Tensor, *index_arrays: torch.Tensor) -> bool:
@@ -163,7 +157,10 @@ def hot_gather_segment_sum(
 
     Requires the aligned layout of ``ops.build_aligned_edges``: tile ``i``
     (``tile_e`` edges) holds only destinations in
-    ``[i*seg_per_tile, (i+1)*seg_per_tile)``, one tile per segment block.
+    ``[i*seg_per_tile, (i+1)*seg_per_tile)``, one tile per segment block;
+    edges naming another block add nothing. Any order of a tile's edges
+    gives the sum; the kernel is fastest on tiles sorted by destination
+    (padding last), as the layout builds them. The result is deterministic.
     """
     on_card = _on_card(hot_table, idx, seg)
     e = idx.shape[0]

@@ -134,18 +134,31 @@ def test_hot_gather_makes_no_host_sync(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_k2_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+def test_k2_matches_plain(cuda, dtype, order):
+    """K2 on the layout's sorted tiles and on tiles shuffled within
+    themselves: within 1e-5 of the plain version, equal bits over two
+    launches."""
     g = generate.uniform(10, 6, seed=0)
     idx_t, seg_t, n_pad = ops.build_aligned_edges(g.indptr, g.indices, 64, 512)
+    if order == "shuffled":
+        rng = np.random.default_rng(5)
+        perm = np.concatenate([t * 512 + rng.permutation(512)
+                               for t in range(idx_t.shape[0] // 512)])
+        idx_t, seg_t = idx_t[perm], seg_t[perm]
     prop = np.random.default_rng(4).standard_normal((g.num_nodes, 24)).astype(np.float32)
-    hot = torch.as_tensor(prop[: g.num_nodes // 2]).to(DTYPES[dtype]).to(cuda)
-    idx, seg = torch.as_tensor(idx_t).to(cuda), torch.as_tensor(seg_t).to(cuda)
-    before = kernels.hot_gather_segment_sum.launches
-    got = kernels.hot_gather_segment_sum(hot, idx, seg, n_pad, 512, 64)
-    want = ref.gather_segment_sum_ref(hot, idx, seg, n_pad, 512, 64)
-    torch.cuda.synchronize()
-    assert kernels.hot_gather_segment_sum.launches == before + 1
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for d in (24, 8, 3):
+        hot = torch.as_tensor(prop[: g.num_nodes // 2, :d]).to(DTYPES[dtype])
+        hot = hot.contiguous().to(cuda)
+        idx, seg = torch.as_tensor(idx_t).to(cuda), torch.as_tensor(seg_t).to(cuda)
+        before = kernels.hot_gather_segment_sum.launches
+        got = kernels.hot_gather_segment_sum(hot, idx, seg, n_pad, 512, 64)
+        again = kernels.hot_gather_segment_sum(hot, idx, seg, n_pad, 512, 64)
+        want = ref.gather_segment_sum_ref(hot, idx, seg, n_pad, 512, 64)
+        torch.cuda.synchronize()
+        assert kernels.hot_gather_segment_sum.launches == before + 2
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -230,3 +243,73 @@ def test_mind_serving_on_card_matches_cpu(cuda):
     snaps = [engine.run_recsys_stream(cfg, cc, sc, st, params=params, service_time_s=1e-3,
                                       device=dev) for dev in (cuda, "cpu")]
     assert snaps[0] == snaps[1]
+
+
+def mixed_bags(v, d, b, h, hot, dtype, cuda, seed=0):
+    """Bags with negative and masked-in >= V ids mixed in, on the card."""
+    table, ids, mask = make_bags(v, d, b, h, hot, seed)
+    ids[::5, h - 1] = v + 3
+    ids[1::9, 0] = 2**30
+    mask[::5, h - 1] = True
+    return (torch.as_tensor(table).to(DTYPES[dtype]).to(cuda), torch.as_tensor(ids).to(cuda),
+            torch.as_tensor(mask).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("v,d,b,h,hot", [(2000, 16, 512, 8, 256), (5000, 64, 300, 12, 512),
+                                         (1000, 100, 64, 4, 1000), (600, 1, 70, 50, 300),
+                                         (900, 200, 33, 37, 900), (300, 130, 40, 5, 0),
+                                         (700, 3, 45, 9, 200)])
+def test_k3_two_tier_matches_plain_bit_for_bit(cuda, v, d, b, h, hot, dtype):
+    """K3's two-tier mode over the whole table, without and with cold ranks
+    (the capacity at 0, half the cold pairs and all of them), bit for bit
+    against its plain version; vector rows (d = 16, 64, 100, 200 f32) and
+    scalar rows (d = 1, 3, 130)."""
+    from repro_torch.kernels.embedding_bag import embedding_bag as bag_kernel
+    from repro_torch.kernels.embedding_bag import ref as bag_ref
+
+    table, ids, mask = mixed_bags(v, d, b, h, hot, dtype, cuda)
+    rank = torch.cumsum((mask & (ids >= hot)).view(-1), 0, dtype=torch.int32).view(b, h)
+    n_cold = int(rank[-1, -1])
+    before = bag_kernel.hot_bag_hot_part.launches
+    for r, cap in ((None, 0), (rank, 0), (rank, n_cold // 2), (rank, n_cold)):
+        got = bag_kernel.hot_bag_two_tier(table, ids, mask, hot, r, cap)
+        want = bag_ref.hot_bag_two_tier_ref(table, ids, mask, hot, r, cap)
+        assert got.dtype == torch.float32 and tuple(got.shape) == (b, d)
+        assert same_bits(got, want), (r is not None, cap)
+    torch.cuda.synchronize()
+    assert bag_kernel.hot_bag_hot_part.launches == before + 4
+    assert torch.isnan(got).any() and not torch.isnan(got).all()
+
+
+@pytest.mark.cuda
+def test_hot_bag_makes_no_host_sync(cuda):
+    """ops.hot_bag is one K3 launch and no host sync at the default
+    capacity, and a scan plus that launch, still without a sync, below it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.embedding_bag import embedding_bag as bag_kernel
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+
+    table, ids, mask = mixed_bags(3000, 64, 256, 50, 512, "f32", cuda, seed=2)
+    bag_ops.hot_bag(table, ids, mask, hot_size=512)    # build and load the kernel
+    torch.cuda.synchronize()
+    before = bag_kernel.hot_bag_hot_part.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        full = bag_ops.hot_bag(table, ids, mask, hot_size=512)
+        capped = bag_ops.hot_bag(table, ids, mask, hot_size=512, cold_capacity=100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bag_kernel.hot_bag_hot_part.launches == before + 2
+    torch.cuda.synchronize()  # the profiler below sees only the next call's kernels
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bag_ops.hot_bag(table, ids, mask, hot_size=512)
+        torch.cuda.synchronize()
+    on_card = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1, on_card
+    args = [a.cpu() for a in (table, ids, mask)]
+    assert same_bits(full.cpu(), bag_ops.hot_bag(*args, hot_size=512))
+    assert same_bits(capped.cpu(), bag_ops.hot_bag(*args, hot_size=512, cold_capacity=100))

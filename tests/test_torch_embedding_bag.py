@@ -156,3 +156,99 @@ def test_hot_bag_hot_part_rejects_bad_inputs():
         t_kernel.hot_bag_hot_part(hot.double(), ids, mask)
     with pytest.raises(ValueError):
         t_kernel.hot_bag_hot_part(hot.t(), ids, mask)
+
+
+def with_edge_ids(ids, mask, v):
+    """Mix in negative ids and masked-in ids >= V."""
+    ids, mask = ids.copy(), mask.copy()
+    ids[::13, 1] = v + 3
+    ids[::17, 2] = -1
+    ids[5::29, 0] = 2**30
+    mask[::13, 1] = mask[5::29, 0] = True
+    return ids, mask
+
+
+@pytest.mark.parametrize("cap", [None, 0, 1, 7, 40])
+@pytest.mark.parametrize("v,d,b,h,hot", SWEEP)
+def test_two_tier_matches_jax(v, d, b, h, hot, cap):
+    """K3's two-tier plain version, and ops.hot_bag through it, against the
+    JAX package's ops.hot_bag (its Pallas hot part plus the compacted cold
+    fixup), with negative and >= V ids mixed in."""
+    table, ids, mask = make_bags(v, d, b, h, hot, seed=7)
+    ids, mask = with_edge_ids(ids, mask, v)
+    got, want = both_bags(table, ids, mask, hot, cold_capacity=cap)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(np.nan_to_num(got), np.nan_to_num(want), **TOL)
+    t_table, t_ids, t_mask = (torch.as_tensor(a) for a in (table, ids, mask))
+    cold = t_mask & (t_ids >= hot)
+    rank = torch.cumsum(cold.view(-1), 0, dtype=torch.int32).view(b, h)
+    plain = t_ref.hot_bag_two_tier_ref(t_table, t_ids, t_mask, hot,
+                                       None if cap is None else rank, cap or 0)
+    assert torch.equal(torch.isnan(plain), torch.from_numpy(np.isnan(got)))
+    assert torch.equal(plain.nan_to_num(), torch.from_numpy(got).nan_to_num())
+
+
+@pytest.mark.parametrize("cap", [None, 7])
+def test_two_tier_bf16_matches_jax(cap):
+    """A bf16 table of small integers: every partial sum is exact in bf16
+    and in f32, so the JAX route (which sums its bf16 rows in bf16) and the
+    port (f32) must agree exactly."""
+    rng = np.random.default_rng(8)
+    v, b, h, hot = 600, 40, 10, 128
+    table = rng.integers(-4, 5, (v, 16)).astype(np.float32)
+    ids = np.where(rng.random((b, h)) < 0.7, rng.integers(0, hot, (b, h)),
+                   rng.integers(0, v, (b, h))).astype(np.int32)
+    mask = rng.random((b, h)) < 0.9
+    ids, mask = with_edge_ids(ids, mask, v)
+    want = np.asarray(j_ops.hot_bag(jnp.asarray(table, dtype=jnp.bfloat16), jnp.asarray(ids),
+                                    jnp.asarray(mask), hot_size=hot, cold_capacity=cap),
+                      dtype=np.float32)
+    got = t_ops.hot_bag(torch.as_tensor(table).to(torch.bfloat16), torch.as_tensor(ids),
+                        torch.as_tensor(mask), hot_size=hot, cold_capacity=cap)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(want))
+    np.testing.assert_array_equal(np.nan_to_num(got.numpy()), np.nan_to_num(want))
+
+
+def test_two_tier_sums_hot_then_cold_each_in_history_order():
+    """Bag = hot_sum + cold_sum, each taken one position after the other in
+    float32: neither one running sum over the bag nor another order."""
+    big = np.float32(2.0**25)                       # f32 spacing 4 here
+    table = np.array([[1.0], [big], [-big]], np.float32)  # rows 0-1 hot, row 2 cold
+    ids = np.array([[0, 2, 0, 0, 1]], np.int32)
+    mask = np.ones_like(ids, bool)
+    got = t_ops.hot_bag(torch.as_tensor(table), torch.as_tensor(ids), torch.as_tensor(mask),
+                        hot_size=2).numpy()[0, 0]
+
+    def running(order):
+        acc = np.float32(0)
+        for i in order:
+            acc = np.float32(acc + table[i, 0])
+        return acc
+
+    hot, cold = [i for i in ids[0] if i < 2], [i for i in ids[0] if i >= 2]
+    assert got == running(hot) + running(cold) == np.float32(4.0)  # 1+1+1+big -> big+4
+    assert running(ids[0]) == 0.0                   # one running sum: 1-big -> -big, ...
+    assert running(hot[::-1]) + running(cold) == 0.0   # big+1+1+1 -> big
+
+
+def test_hot_bag_two_tier_checks_inputs():
+    table = torch.zeros((8, 4))
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    mask = torch.ones((2, 3), dtype=torch.bool)
+    rank = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="cold_rank"):
+        t_kernel.hot_bag_two_tier(table, ids, mask, 4, rank[:, :2].contiguous(), 1)
+    with pytest.raises(ValueError, match="cold_rank"):
+        t_kernel.hot_bag_two_tier(table, ids, mask, 4, rank.long(), 1)
+    for hot_size in (-1, 9):
+        with pytest.raises(ValueError, match="hot_size"):
+            t_kernel.hot_bag_two_tier(table, ids, mask, hot_size)
+    with pytest.raises(ValueError, match="cold_capacity"):
+        t_kernel.hot_bag_two_tier(table, ids, mask, 4, rank, -1)
+    with pytest.raises(ValueError, match="cold_capacity"):
+        t_ops.hot_bag(table, ids, mask, 4, cold_capacity=-1)
+    with pytest.raises(ValueError, match="mask"):
+        t_kernel.hot_bag_two_tier(table, ids, mask[:, :2], 4)
+    with pytest.raises(TypeError):
+        t_kernel.hot_bag_two_tier(table.double(), ids, mask, 4)

@@ -271,3 +271,27 @@ def test_wrappers_check_inputs():
         t_ops.hot_gather(torch.zeros((2, 2, 2)), idx)
     with pytest.raises(ValueError):
         t_ops.hot_gather(hot, idx, cold_capacity=-1)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_k2_shuffled_tiles_match_jax(dtype):
+    """Any order of a tile's edges gives the sum, as the TPU's one-hot
+    product does: each tile's edges (padding included) shuffled within it."""
+    g = j_generate.uniform(9, 6, seed=1)
+    idx_t, seg_t, n_pad = j_ops.build_aligned_edges(g.indptr, g.indices, 64, 512)
+    rng = np.random.default_rng(9)
+    perm = np.concatenate([t * 512 + rng.permutation(512) for t in range(idx_t.shape[0] // 512)])
+    idx_s, seg_s = idx_t[perm], seg_t[perm]
+    assert not np.array_equal(seg_s, seg_t)
+    prop = rng.standard_normal((g.num_nodes, 8)).astype(np.float32)
+    hot = prop[: g.num_nodes // 2]
+    jd, td = DTYPES[dtype]
+    want = j_ops.hot_gather_segsum_aligned(jnp.asarray(hot, dtype=jd), jnp.asarray(idx_s),
+                                           jnp.asarray(seg_s), n_pad, 64, tile_e=512)
+    t_hot = torch.as_tensor(hot).to(td)
+    got = t_ops.hot_gather_segsum_aligned(t_hot, torch.as_tensor(idx_s), torch.as_tensor(seg_s),
+                                          n_pad, 64, tile_e=512)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    in_order = t_ops.hot_gather_segsum_aligned(t_hot, torch.as_tensor(idx_t),
+                                               torch.as_tensor(seg_t), n_pad, 64, tile_e=512)
+    torch.testing.assert_close(got, in_order, rtol=1e-5, atol=1e-5)
