@@ -39,20 +39,36 @@ Phases, each of which must pass:
      and LRU, the first batch's scores match the dense forward (1e-5), K1
      runs once per lookup with hot references (never unpinned); then one
      run with measured service time for requests/s, e2e p50/p99, the
-     lookup/forward split and peak device memory.
+     lookup/forward split and peak device memory;
+  9. the graph suite: (a) examples/graph_suite_torch.main("tw", 13) on the
+     card (PageRank and PageRank-Delta through K1, SSSP, BC, Radii in both
+     orders, then RRIP vs GRASP on each app's trace), each app's output
+     against the same function on the CPU (SSSP, BC's level and sigma,
+     Radii exact; PRD rtol 1e-4 atol 1e-7; BC's delta rtol 1e-4), K1
+     launched once per PR and PRD iteration; (b) all 13 LLC policies on
+     the quickstart's PR trace: the hit accounting holds and OPT misses
+     least (no other order is asserted); (c) at real size (the ``lj``
+     graph of phase 5): PRD through K1 against the plain gather (rel
+     1e-4, K1 once per iteration), SSSP from 0 (no edge relaxes further),
+     BC from 0 (its levels are the hop distances of a unit-weight SSSP
+     within 64 hops, sigma >= 1 where reached) and Radii from roots 0..7
+     (bit 0 set exactly where BC reached, radii >= level), each with its
+     wall ms, iterations and peak device memory.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
 time by torch.profiler, and host microseconds per call. K1's and K3's are
 those of the mode the path launches: two-tier where it goes through
 ops.hot_gather or ops.hot_bag (the quickstart, PageRank, serve_scores, the
-bag), hot part in the serve cache.
+bag, real-size PageRank-Delta), hot part in the serve cache. Each phase
+prints its wall time.
 Then one JSON line of per-kernel numbers, the card line again, and the
 final {"ok": true, ...} line. It exits non-zero, printing no result, when
 CUDA is unavailable or the repository's sources are missing.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -67,6 +83,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 REAL_SCALE = 22               # lj: 4.19M vertices vs LiveJournal's 5M (paper Table V)
 PR_ITERS = 20
+PRD_TURNS = ("hot", "plain", "plain", "hot") * 3   # real-size PageRank-Delta runs
 # MIND through the GRASP cache: 8,192 requests in batches of 512, a 128 MiB
 # cache (a quarter of the 512 MiB table); retrieval's table split at 2^18 rows
 MIND_REQUESTS = 8192
@@ -110,22 +127,42 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def spin_pad() -> None:
+    """Eight spin kernels (``spin_kernel``) and a synchronise: padding at
+    the edges of a torch.profiler window, where the profiler on the card
+    loses a few kernels (4 of 20 calls unpadded; 3 of the 16 spin kernels
+    padded). Readers of the window leave the spin kernels out."""
+    import torch
+
+    for _ in range(8):
+        torch.cuda._sleep(100_000)
+    torch.cuda.synchronize()
+
+
 def device_ms(fn, reps: int = 20) -> float | None:
     """Mean device time of ``fn`` per call: the self device time of every
-    kernel it launched over ``reps`` calls, read with torch.profiler (None
-    where the profiler saw no device time)."""
+    kernel it launched over ``reps`` calls, read with torch.profiler in a
+    window padded by ``spin_pad``. None where it saw no device time, or a
+    count of kernels that is not a multiple of ``reps`` (each call launches
+    the same kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        spin_pad()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy / 1e3 / reps if busy > 0 else None
+        spin_pad()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key]
+    busy = sum(e.self_device_time_total for e in kernels)
+    seen = sum(e.count for e in kernels)
+    if seen % reps:
+        print(f"device_ms: the profiler saw {seen} kernels for {reps} calls: "
+              + ", ".join(f"{e.key[:48]} x{e.count}" for e in kernels))
+    return busy / 1e3 / reps if busy > 0 and seen % reps == 0 else None
 
 
 def host_us(fn, calls: int = 1000) -> float:
@@ -899,6 +936,209 @@ def run_mind_stream(dev, params) -> tuple[list, list, float]:
     return mix, counts, err
 
 
+def same_outputs(label: str, got, want, rtol: float | None = None, atol: float = 0.0) -> str:
+    """Fail unless ``got`` (on the card) equals ``want`` (on the CPU), or is
+    within ``rtol``/``atol`` of it; returns a short account of the match."""
+    import torch
+
+    got = got.cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{label}: {got.dtype} {tuple(got.shape)} on the card, {want.dtype} "
+             f"{tuple(want.shape)} on the CPU")
+    if rtol is None:
+        if not torch.equal(got, want):
+            fail(f"{label}: {int((got != want).sum())} entries differ from the CPU run")
+        return "exact"
+    diff = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        fail(f"{label}: differs from the CPU run by {diff:.3e} (rtol {rtol}, atol {atol})")
+    return f"max abs diff {diff:.3e}"
+
+
+def run_graph_suite(dev) -> None:
+    """Phase 9 (a): examples/graph_suite_torch.main("tw", 13) on the card,
+    each app's output against the same function on the CPU, K1's launches
+    against the PR and PRD iterations; then PRD alone, once per iteration."""
+    import torch
+
+    import graph_suite_torch
+    from repro_torch import apps
+    from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+
+    hot_gather_hot_part.launches = 0
+    out = graph_suite_torch.main("tw", 13, str(dev))
+    launches = hot_gather_hot_part.launches
+    iters = out["iters"]
+    want = sum(it["pr"] + it["prd"] for it in iters.values())
+    print(f"graph suite: K1 launches {launches}, PR + PRD iterations {want}")
+    if launches != want:
+        fail(f"graph suite: {launches} K1 launches for {want} PR and PRD iterations")
+    for label, g in out["graphs"].items():
+        card = out["outputs"][label]
+        cpu, _, cpu_iters = graph_suite_torch.run_apps(g, f"{label}, on the CPU", "cpu")
+        # PR's and PRD's stopping tests read sums whose order differs
+        if any(cpu_iters[k] != iters[label][k] for k in ("sssp", "bc", "radii")):
+            fail(f"graph suite {label}: iterations {iters[label]} on the card, {cpu_iters} on "
+                 f"the CPU")
+        checks = {
+            "pr": same_outputs(f"{label} PR", card["pr"], cpu["pr"], 1e-5, 1e-7),
+            "prd": same_outputs(f"{label} PRD", card["prd"], cpu["prd"], 1e-4, 1e-7),
+            "sssp": same_outputs(f"{label} SSSP", card["sssp"], cpu["sssp"]),
+            "bc level": same_outputs(f"{label} BC level", card["bc"][2], cpu["bc"][2]),
+            "bc sigma": same_outputs(f"{label} BC sigma", card["bc"][1], cpu["bc"][1]),
+            "bc delta": same_outputs(f"{label} BC delta", card["bc"][0], cpu["bc"][0], 1e-4),
+            "radii": same_outputs(f"{label} Radii radii", card["radii"][0], cpu["radii"][0]),
+            "radii mask": same_outputs(f"{label} Radii mask", card["radii"][1],
+                                       cpu["radii"][1]),
+        }
+        for name, t in (("pr", card["pr"]), ("prd", card["prd"]), ("bc delta", card["bc"][0])):
+            if not torch.isfinite(t).all():
+                fail(f"graph suite {label}: {name} is not finite")
+        print(f"graph suite {label}: card vs CPU " + "; ".join(
+            f"{k} {v}" for k, v in checks.items()))
+
+    dg = out["graphs"]["dbg"].device(dev)
+    stats = {}
+    hot_gather_hot_part.launches = 0
+    apps.pagerank_delta(dg, stats=stats)
+    launches = hot_gather_hot_part.launches
+    print(f"graph suite: PRD alone, {stats['iters']} iterations, K1 launches {launches}")
+    if launches != stats["iters"]:
+        fail(f"PRD: {launches} K1 launches for {stats['iters']} iterations")
+
+
+def run_policies(qs_graph) -> None:
+    """Phase 9 (b): all 13 policies on the quickstart's PR trace (host). The
+    hit accounting holds and OPT misses least; the other orders are printed,
+    not judged."""
+    from repro_torch.core import cachesim, policies
+    from repro_torch.graph import datasets, traces
+
+    llc = datasets.scaled_llc_bytes("tw", qs_graph, elem_bytes=16)
+    tr, _ = traces.generate_trace(qs_graph, "pr", llc)
+    res = {}
+    for name in policies.POLICIES:
+        r = cachesim.simulate(tr, name, llc)
+        if (r.accesses != tr.length or int(r.accesses_by_hint.sum()) != tr.length
+                or (r.hits_by_hint > r.accesses_by_hint).any()
+                or int(r.hits_by_hint.sum()) != r.hits):
+            fail(f"policy {name}: hit accounting {r.hits_by_hint} of {r.accesses_by_hint}")
+        res[name] = r
+    print(f"policies on the quickstart PR trace ({tr.length} accesses, LLC {llc} bytes), "
+          f"misses: " + ", ".join(f"{k} {r.misses}" for k, r in res.items()))
+    worse = [k for k, r in res.items() if r.misses < res["opt"].misses]
+    if worse:
+        fail(f"policies: {worse} miss less than OPT ({res['opt'].misses})")
+
+
+def run_real_suite(dev, g2) -> int:
+    """Phase 9 (c): PRD, SSSP, BC and Radii at real size on ``g2`` (the
+    ``lj`` graph of phase 5). Returns K1's launches in one PRD run through K1."""
+    import statistics
+
+    import torch
+
+    from repro_torch import apps
+    from repro_torch.graph.csr import transpose
+    from repro_torch.graph.generate import add_uniform_weights
+    from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+
+    t0 = time.perf_counter()
+    out_csr = transpose(add_uniform_weights(g2, seed=1))
+    print(f"real-size suite: weighted out-CSR built on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)  # earlier phases' tensors, not counted
+    dg = g2.device(dev)
+    d_out = out_csr.device(dev)
+    d_hops = dataclasses.replace(d_out, weights=None)  # the same edges, unit weights
+
+    def run(label, fn):
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        hot_gather_hot_part.launches = 0
+        t0 = time.perf_counter()
+        res = fn(stats)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        print(f"real-size {label}: {ms:.3f} ms, {stats['iters']} iterations "
+              f"({ms / max(stats['iters'], 1):.4f} ms each), peak device memory of the graphs "
+              f"and the app {peak:.3f} GiB, K1 launches {hot_gather_hot_part.launches}")
+        return res, stats["iters"], hot_gather_hot_part.launches, ms
+
+    # PageRank-Delta through K1 against the plain gather, in turns
+    for impl in ("hot", "plain"):  # warm-up of both routes
+        apps.pagerank_delta(dg, max_iters=1, gather_impl=impl)
+    ranks, prd_launches, prd_ms = {}, set(), {"hot": [], "plain": []}
+    for impl in PRD_TURNS:
+        ranks[impl], it, launches, ms = run(
+            f"PRD, {impl} gather", lambda st: apps.pagerank_delta(dg, gather_impl=impl, stats=st))
+        prd_ms[impl].append(ms / it)
+        if impl == "hot" and launches != it:
+            fail(f"real-size PRD: {launches} K1 launches for {it} iterations")
+        if impl == "plain" and launches:
+            fail(f"real-size PRD with the plain gather launched K1 {launches} times")
+        if impl == "hot":
+            prd_launches.add(launches)
+    for impl, ms in prd_ms.items():
+        print(f"real-size PRD, {impl} gather over {len(ms)} runs: ms/iteration min "
+              f"{min(ms):.4f} median {statistics.median(ms):.4f} max {max(ms):.4f}")
+    hot, plain = ranks["hot"], ranks["plain"]
+    rel = float(((hot - plain).abs() / plain.abs().clamp(min=1e-30)).max())
+    if not torch.isfinite(hot).all() or rel > 1e-4:
+        fail(f"real-size PRD through K1: finite {bool(torch.isfinite(hot).all())}, max rel "
+             f"diff from the plain gather {rel:.3e}")
+    print(f"real-size PRD: K1 vs plain gather max rel diff {rel:.3e}, ranks finite")
+
+    # SSSP from 0: no edge relaxes any further
+    dist = run("SSSP from 0", lambda st: apps.sssp(d_out, 0, stats=st))[0]
+    src, dst = d_out.dst.long(), d_out.indices.long()
+    d_src = dist[src]
+    relaxes = int((torch.isfinite(d_src) & (dist[dst] > d_src + d_out.weights)).sum())
+    reached = int(torch.isfinite(dist).sum())
+    del d_src
+    print(f"real-size SSSP: {reached} vertices reached, {relaxes} edges relax further")
+    if float(dist[0]) != 0.0 or relaxes:
+        fail(f"real-size SSSP: dist[0] = {float(dist[0])}, {relaxes} edges relax further")
+
+    # BC from 0: levels are the hop distances within 64 hops
+    hops = run("SSSP from 0, unit weights", lambda st: apps.sssp(d_hops, 0, stats=st))[0]
+    _, sigma, level = run("BC from 0", lambda st: apps.bc_single_source(d_hops, 0, stats=st))[0]
+    want = torch.where(hops <= 64, hops, torch.full_like(hops, -1.0)).to(torch.int32)
+    reached_bc = level >= 0
+    print(f"real-size BC: {int(reached_bc.sum())} vertices reached, deepest level "
+          f"{int(level.max())}, largest sigma {float(sigma.max()):.4g}")
+    if not torch.equal(level, want):
+        fail(f"real-size BC: {int((level != want).sum())} levels differ from the hop distances")
+    if not (sigma[reached_bc] >= 1).all():
+        fail("real-size BC: sigma < 1 on a reached vertex")
+
+    # Radii from roots 0..7: bit 0 is the BFS from vertex 0 again
+    radii, mask = run("Radii from roots 0..7", lambda st: apps.radii_estimate(
+        dg, torch.arange(8), stats=st))[0]
+    bit0 = (mask.to(torch.int64) & 1) == 1
+    print(f"real-size Radii: {int(bit0.sum())} vertices with bit 0, largest radius "
+          f"{int(radii.max())}")
+    if not torch.equal(bit0, reached_bc):
+        fail(f"real-size Radii: bit 0 differs from BC's reach at "
+             f"{int((bit0 != reached_bc).sum())} vertices")
+    if not (radii[reached_bc] >= level[reached_bc]).all():
+        fail("real-size Radii: a radius below its BFS level")
+    if len(prd_launches) != 1:
+        fail(f"real-size PRD: K1 launches differ between runs: {prd_launches}")
+    return prd_launches.pop()
+
+
+def phase(label: str, fn, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -914,9 +1154,7 @@ def main() -> int:
     print(card)
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matrix products are on: MIND's float32 scores need them off")
-    t0 = time.perf_counter()
-    build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    phase("1 (build with nvcc, sm_90a)", build_all)
 
     t0 = time.perf_counter()
     qs_graph = dbg_graph("tw", 13)
@@ -924,10 +1162,10 @@ def main() -> int:
     print(f"graphs: lj scale {REAL_SCALE} has {real_graph.num_nodes} vertices, "
           f"{real_graph.num_edges} edges ({time.perf_counter() - t0:.1f} s on the host)")
 
-    k1_mix, k1_err = check_k1(dev, qs_graph, real_graph)
-    k2 = check_k2(dev)
-    qs_launches = run_quickstart(dev)
-    real_launches = run_real_pagerank(dev, real_graph)
+    k1_mix, k1_err = phase("2 (K1)", check_k1, dev, qs_graph, real_graph)
+    k2 = phase("3 (K2)", check_k2, dev)
+    qs_launches = phase("4 (quickstart)", run_quickstart, dev)
+    real_launches = phase("5 (real-size PageRank)", run_real_pagerank, dev, real_graph)
 
     from repro_torch.configs.base import get_arch
     from repro_torch.nn import recsys
@@ -936,9 +1174,13 @@ def main() -> int:
     params = recsys.init(torch.Generator().manual_seed(0), get_arch("mind"), device=dev)
     print(f"MIND parameters at full width: items {tuple(params['items'].shape)} f32 "
           f"({time.perf_counter() - t0:.1f} s)")
-    k3 = check_k3(dev, params["items"])
-    dense_mix, dense_launches, dense_err = check_mind_dense(dev, params)
-    cache_mix, cache_counts, cache_err = run_mind_stream(dev, params)
+    k3 = phase("6 (K3)", check_k3, dev, params["items"])
+    dense_mix, dense_launches, dense_err = phase("7 (MIND dense)", check_mind_dense, dev,
+                                                 params)
+    cache_mix, cache_counts, cache_err = phase("8 (MIND stream)", run_mind_stream, dev, params)
+    phase("9a (graph suite)", run_graph_suite, dev)
+    phase("9b (policies)", run_policies, qs_graph)
+    prd_launches = phase("9c (real-size suite)", run_real_suite, dev, real_graph)
 
     # the quickstart launches K1 once per PageRank iteration, then once in step 5
     # the serve cache runs K1's hot-part mode; the others go through ops.hot_gather
@@ -950,6 +1192,9 @@ def main() -> int:
                           two_tier=False)
     k1_dense = k1_numbers("mind serve_scores hot", dense_mix, [dense_launches], dense_err,
                           two_tier=True)
+    # PageRank-Delta gathers (N,) f32 over the same graph as PageRank
+    k1_prd = k1_numbers("real-size pagerank-delta", k1_mix["real-size pagerank"],
+                        [prd_launches], k1_err["real-size pagerank"], two_tier=True)
     source = "src/repro_torch/csrc/hot_gather.cu"
     k1_tpu = "src/repro/kernels/hot_gather/hot_gather.py:26"
     kernels = [
@@ -961,6 +1206,8 @@ def main() -> int:
              path="mind serve cache", **k1_cache),
         dict(name="hot_gather", route="cuda", source=source, replaces=k1_tpu,
              path="mind serve_scores hot", **k1_dense),
+        dict(name="hot_gather", route="cuda", source=source, replaces=k1_tpu,
+             path="real-size pagerank-delta", **k1_prd),
         dict(name="gather_segsum", route="cuda", source=source,
              replaces="src/repro/kernels/hot_gather/hot_gather.py:58",
              path="aligned pull sum", **k2),

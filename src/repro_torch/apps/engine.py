@@ -60,9 +60,10 @@ def or_reduce(data, seg, n):
 def gather_src(g: DeviceCSR, prop: torch.Tensor, gather_impl: str = "hot") -> torch.Tensor:
     """prop[src] for every edge — THE hot path the paper targets.
 
-    ``gather_impl='hot'`` routes through the two-tier hot-region kernel
-    (``repro_torch.kernels.hot_gather``, K1 plus the cold fixup); 'plain' is
-    one ``index_select``. ``prop`` may be ``(N,)`` or ``(N, d)``.
+    ``gather_impl='hot'`` routes through the hot-region kernel
+    (``repro_torch.kernels.hot_gather.ops.hot_gather``: one two-tier K1
+    launch over hot and cold rows); 'plain' is one ``index_select``.
+    ``prop`` may be ``(N,)`` or ``(N, d)``.
     """
     if gather_impl == "plain":
         return prop.index_select(0, g.indices)

@@ -1,6 +1,8 @@
 """PageRank (paper Table III: PR) — iterative pull-based."""
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -14,12 +16,14 @@ def pagerank(
     tol: float = 1e-6,
     max_iters: int = 100,
     gather_impl: str = "hot",
+    stats: Optional[dict] = None,
 ) -> torch.Tensor:
     """Ranks of ``g``'s vertices, float32 on ``g``'s device.
 
     A host loop runs while ``(err > tol*n) & (it < max_iters)``, the
     condition of the JAX package's ``while_loop``; reading ``err`` each
-    iteration synchronises with the device.
+    iteration synchronises with the device. ``stats``, when given, receives
+    ``iters``, the number of iterations run.
     """
     n = g.num_nodes
     out_deg = sum_reduce(torch.ones(g.indices.shape, dtype=torch.float32,
@@ -42,4 +46,6 @@ def pagerank(
         new_rank = base + damping * (incoming + dangling / n)
         err = float(torch.abs(new_rank - rank).sum())
         rank, it = new_rank, it + 1
+    if stats is not None:
+        stats["iters"] = it
     return rank

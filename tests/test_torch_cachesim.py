@@ -1,9 +1,10 @@
-"""repro_torch LLC simulator + policies vs the JAX package: every ported
+"""repro_torch LLC simulator + policies vs the JAX package: every
 policy's hits_by_hint bit for bit, and the paper's claims end to end."""
 import numpy as np
 import pytest
 
 from repro.core import cachesim as j_cachesim
+from repro.core.policies import POLICIES as J_POLICIES
 from repro.core.reorder import reorder_ranks
 from repro.graph import datasets, traces
 from repro.graph.csr import apply_reorder
@@ -15,7 +16,7 @@ from repro_torch.graph import traces as t_traces
 from repro_torch.core.reorder import reorder_ranks as t_reorder_ranks
 from repro_torch.graph.csr import apply_reorder as t_apply_reorder
 
-PORTED = ("lru", "rrip", "rrip_hints", "grasp_insert", "grasp", "opt")
+PORTED = tuple(J_POLICIES)  # the JAX package's thirteen
 LLC = 16 * 1024  # 16 sets x 16 ways x 64B
 
 
@@ -53,7 +54,7 @@ def test_hits_by_hint_identical_on_graph_trace(graph_trace, policy):
     assert (got.hits, got.misses, got.accesses) == (want.hits, want.misses, want.accesses)
 
 
-@pytest.mark.parametrize("ways", [16, 4])
+@pytest.mark.parametrize("ways", [16, 4, 2])  # 2: PIN-X's quota rounding
 @pytest.mark.parametrize("policy", PORTED)
 def test_hits_by_hint_identical_on_mixed_hints(mixed_trace, policy, ways):
     want = j_cachesim.simulate(mixed_trace, policy, LLC, ways=ways)
@@ -61,11 +62,40 @@ def test_hits_by_hint_identical_on_mixed_hints(mixed_trace, policy, ways):
     np.testing.assert_array_equal(got.hits_by_hint, want.hits_by_hint)
 
 
-@pytest.mark.parametrize("policy", ["ship_mem", "hawkeye", "leeway", "pin_25", "pin_100"])
-def test_unported_policies_raise_keyerror(mixed_trace, policy):
-    assert policy not in t_policies.POLICIES
+def test_registry_has_the_reference_policies():
+    assert list(t_policies.POLICIES) == list(J_POLICIES)
+    assert len(PORTED) == 13
+
+
+@pytest.mark.parametrize("policy", ["nope", "pin_33"])
+def test_unknown_policy_raises_keyerror(mixed_trace, policy):
     with pytest.raises(KeyError, match=policy):
         t_cachesim.simulate(to_port(mixed_trace), policy, LLC)
+
+
+def test_pin_quota_rounding(mixed_trace):
+    """max(1, round(ways * X / 100)) with Python's round: at 2 ways PIN-25
+    and PIN-50 both pin 1 way and PIN-75 and PIN-100 both 2; at 4 ways each
+    X pins a different count."""
+    tr = to_port(mixed_trace)
+    hits = {(x, w): tuple(t_cachesim.simulate(tr, f"pin_{x}", LLC, ways=w).hits_by_hint)
+            for x in (25, 50, 75, 100) for w in (2, 4)}
+    assert hits[25, 2] == hits[50, 2] != hits[75, 2] == hits[100, 2]
+    assert len({hits[x, 4] for x in (25, 50, 75, 100)}) == 4
+
+
+def test_pin_bypasses_a_fully_pinned_set():
+    """17 High-Reuse lines into one 16-way set: PIN-100 pins the first 16,
+    and the 17th bypasses the set on every pass; the JAX package agrees."""
+    s = 16  # lines spaced by the set count all map to set 0
+    lines = np.tile(np.arange(17) * s, 4)
+    tr = t_cachesim.finalize_trace(lines, np.zeros(lines.shape), np.zeros(lines.shape))
+    got = t_cachesim.simulate(tr, "pin_100", LLC)
+    assert got.hits == 16 * 3
+    want = j_cachesim.simulate(j_cachesim.finalize_trace(lines, np.zeros(lines.shape),
+                                                         np.zeros(lines.shape)), "pin_100", LLC)
+    np.testing.assert_array_equal(got.hits_by_hint, want.hits_by_hint)
+    assert t_cachesim.simulate(tr, "rrip", LLC).hits < got.hits
 
 
 def test_trace_helpers_identical():

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions, and
+the paths through them (PageRank, the graph apps, MIND) against the CPU.
 
 These tests need an NVIDIA GPU and skip elsewhere. The JAX package is not
 installed beside the card, so this file imports only the port and runs
@@ -69,6 +70,26 @@ def same_bits(a, b):
         a.nan_to_num(nan=0.0), b.nan_to_num(nan=0.0))
 
 
+def kernels_launched(fn):
+    """Names of the kernels ``fn`` launches, read with torch.profiler. The
+    call sits between runs of spin kernels, which are left out: on the card
+    the profiler loses a few kernels at the edge of a window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        for _ in range(8):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pad()
+        fn()
+        pad()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in ev.name]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("d", [1, 3, 4, 8, 64, 130, 257])
@@ -101,8 +122,6 @@ def test_k1_layouts_and_two_tier_match_plain(cuda, d, e, offset, dtype):
 def test_hot_gather_makes_no_host_sync(cuda):
     """ops.hot_gather is one K1 launch and no host sync at the default
     capacity, and a scan plus that launch, still without a sync, below it."""
-    from torch.profiler import ProfilerActivity, profile
-
     prop, idx = make_inputs(5000, 8, 20000, 1024)
     idx[::53] = 5000
     table, idx_t = torch.as_tensor(prop).to(cuda), torch.as_tensor(idx).to(cuda)
@@ -118,11 +137,7 @@ def test_hot_gather_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert kernels.hot_gather_hot_part.launches == before + 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ops.hot_gather(table, idx_t, hot_size=1024)
-        torch.cuda.synchronize()
-    on_card = [ev.name for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    on_card = kernels_launched(lambda: ops.hot_gather(table, idx_t, hot_size=1024))
     assert len(on_card) == 1, on_card
     cpu_t, cpu_i = torch.as_tensor(prop), torch.as_tensor(idx)
     assert same_bits(full.cpu(), ops.hot_gather(cpu_t, cpu_i, hot_size=1024))
@@ -169,6 +184,80 @@ def test_pagerank_through_k1_matches_cpu(cuda):
     assert kernels.hot_gather_hot_part.launches > before
     on_cpu = apps.pagerank(g.device("cpu"))
     torch.testing.assert_close(on_card, on_cpu, rtol=1e-5, atol=1e-7)
+
+
+# --- the graph suite: PageRank-Delta through K1, SSSP, BC, Radii ------------
+def suite_graphs():
+    """The DBG-ordered ``tw`` graph at scale 13, its weighted out-CSR
+    (SSSP) and its out-CSR (BC), as examples/graph_suite_torch.py runs them."""
+    from repro_torch.core.reorder import reorder_ranks
+    from repro_torch.graph import datasets
+    from repro_torch.graph.csr import apply_reorder, transpose
+
+    g = datasets.load("tw", scale=13)
+    g = apply_reorder(g, reorder_ranks(g, "dbg"))
+    return g, transpose(generate.add_uniform_weights(g, seed=1)), transpose(g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["prd", "sssp", "bc", "radii"])
+def test_graph_apps_on_card_match_cpu(cuda, app):
+    """Each new app on the card against the same function on the CPU:
+    SSSP, BC's level and sigma, and Radii exact; PRD and BC's delta within
+    the summation-order tolerances of the CPU parity tests."""
+    g, g_sssp, g_bc = suite_graphs()
+    run = {
+        "prd": lambda dev: [apps.pagerank_delta(g.device(dev))],
+        "sssp": lambda dev: [apps.sssp(g_sssp.device(dev), 0)],
+        "bc": lambda dev: list(apps.bc_single_source(g_bc.device(dev), 0)),
+        "radii": lambda dev: list(apps.radii_estimate(g.device(dev), torch.arange(8))),
+    }[app]
+    on_card = [x.cpu() for x in run(cuda)]
+    on_cpu = run("cpu")
+    for got, want in zip(on_card, on_cpu):
+        assert got.dtype == want.dtype and got.shape == want.shape
+    if app == "prd":
+        torch.testing.assert_close(on_card[0], on_cpu[0], rtol=1e-4, atol=1e-7)
+    elif app == "bc":
+        assert torch.equal(on_card[2], on_cpu[2]) and torch.equal(on_card[1], on_cpu[1])
+        torch.testing.assert_close(on_card[0], on_cpu[0], rtol=1e-5, atol=1e-6)
+    else:
+        assert all(torch.equal(a, b) for a, b in zip(on_card, on_cpu))
+
+
+@pytest.mark.cuda
+def test_pagerank_delta_launches_k1_once_per_iteration(cuda):
+    g = suite_graphs()[0]
+    dg = g.device(cuda)
+    stats = {}
+    before = kernels.hot_gather_hot_part.launches
+    apps.pagerank_delta(dg, stats=stats)
+    assert kernels.hot_gather_hot_part.launches - before == stats["iters"] >= 1
+    before = kernels.hot_gather_hot_part.launches
+    apps.pagerank_delta(dg, gather_impl="plain")
+    assert kernels.hot_gather_hot_part.launches == before
+
+
+@pytest.mark.cuda
+def test_pagerank_delta_gather_makes_no_host_sync(cuda):
+    """PRD's pull (gather through ops.hot_gather, then the segment sum) is
+    one K1 launch and no host sync."""
+    from repro_torch.apps import engine
+
+    g = suite_graphs()[0]
+    dg = g.device(cuda)
+    contrib = torch.rand(g.num_nodes, generator=torch.Generator().manual_seed(0)).to(cuda)
+    engine.edge_map_pull(dg, contrib)                     # build and load the kernel
+    torch.cuda.synchronize()
+    before = kernels.hot_gather_hot_part.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pulled = engine.edge_map_pull(dg, contrib, reduce_fn=engine.sum_reduce)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.hot_gather_hot_part.launches == before + 1
+    want = engine.edge_map_pull(g.device("cpu"), contrib.cpu(), gather_impl="plain")
+    torch.testing.assert_close(pulled.cpu(), want, rtol=1e-5, atol=1e-7)
 
 
 # --- K3 (hot embedding bag) and the MIND serving path -----------------------
@@ -287,8 +376,6 @@ def test_k3_two_tier_matches_plain_bit_for_bit(cuda, v, d, b, h, hot, dtype):
 def test_hot_bag_makes_no_host_sync(cuda):
     """ops.hot_bag is one K3 launch and no host sync at the default
     capacity, and a scan plus that launch, still without a sync, below it."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels.embedding_bag import embedding_bag as bag_kernel
     from repro_torch.kernels.embedding_bag import ops as bag_ops
 
@@ -303,12 +390,7 @@ def test_hot_bag_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bag_kernel.hot_bag_hot_part.launches == before + 2
-    torch.cuda.synchronize()  # the profiler below sees only the next call's kernels
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        bag_ops.hot_bag(table, ids, mask, hot_size=512)
-        torch.cuda.synchronize()
-    on_card = [ev.name for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    on_card = kernels_launched(lambda: bag_ops.hot_bag(table, ids, mask, hot_size=512))
     assert len(on_card) == 1, on_card
     args = [a.cpu() for a in (table, ids, mask)]
     assert same_bits(full.cpu(), bag_ops.hot_bag(*args, hot_size=512))

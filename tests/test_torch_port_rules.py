@@ -38,7 +38,9 @@ FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "graph_suite_torch.py",
     ROOT / "scripts" / "torch_profile_pagerank.py", ROOT / "scripts" / "k1_d1_layouts.py",
+    ROOT / "scripts" / "torch_profile_graph_suite.py",
     ROOT / "scripts" / "k1_d1_layouts.cu", ROOT / "scripts" / "k2_k3_times.py",
     ROOT / "scripts" / "k3_layouts.py", ROOT / "scripts" / "k3_layouts.cu"],
     ids=lambda p: str(p.relative_to(ROOT)))
@@ -68,6 +70,15 @@ def test_quickstart_without_device_raises_without_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         quickstart_torch.main()
+
+
+def test_graph_suite_without_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sys.path.insert(0, str(ROOT / "examples"))
+    import graph_suite_torch
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        graph_suite_torch.main()
 
 
 def test_serving_entry_points_without_device_raise_without_cuda(monkeypatch):
