@@ -53,15 +53,28 @@ Phases, each of which must pass:
      BC from 0 (its levels are the hop distances of a unit-weight SSSP
      within 64 hops, sigma >= 1 where reached) and Radii from roots 0..7
      (bit 0 set exactly where BC reached, radii >= level), each with its
-     wall ms, iterations and peak device memory.
+     wall ms, iterations and peak device memory;
+ 10. GIN (gin-tu at full width) served through the GRASP feature cache
+     (GNNServeEngine) over the ``lj`` graph of phase 5, the JAX package's
+     stand-in for ogb_products, with 100-wide seeded features: 8,192
+     requests of 4 seeds, batches of 1,024 seeds sampled with fanout
+     (15, 10), a 256 MiB cache as GRASP (pinned) and as unpinned RRPV and
+     LRU, all requests submitted at once and served on the real clock;
+     every request completes with finite (4, 16) logits, one batch's
+     forward_blocks equals GIN over the densely gathered features on the
+     card (rtol 1e-5, atol 1e-6) and the port on the CPU (rtol 1e-4, atol
+     1e-5), K1 on that batch's hot ids is its plain version bit for bit and
+     runs once per batch under GRASP (never unpinned); it prints requests/s,
+     e2e p50/p99, the hit rates, the per-batch split (sampling and cache
+     lookup on the host, the forward on the card) and peak device memory.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
 time by torch.profiler, and host microseconds per call. K1's and K3's are
 those of the mode the path launches: two-tier where it goes through
 ops.hot_gather or ops.hot_bag (the quickstart, PageRank, serve_scores, the
-bag, real-size PageRank-Delta), hot part in the serve cache. Each phase
-prints its wall time.
+bag, real-size PageRank-Delta), hot part in the serve caches (MIND's and
+GIN's). Each phase prints its wall time.
 Then one JSON line of per-kernel numbers, the card line again, and the
 final {"ok": true, ...} line. It exits non-zero, printing no result, when
 CUDA is unavailable or the repository's sources are missing.
@@ -90,6 +103,15 @@ MIND_REQUESTS = 8192
 MIND_MAX_BATCH = 512
 MIND_CACHE_BYTES = 128 << 20
 RETRIEVAL_HOT_ROWS = 1 << 18
+# GIN served through the GRASP feature cache over the lj graph of phase 5
+# (ogb_products' stand-in), with ogb_products' d_feat and minibatch_lg's
+# fanout and 1,024 seeds a batch; a 256 MiB cache (16% of the table)
+GNN_D_FEAT = 100
+GNN_REQUESTS = 8192
+GNN_SEEDS_PER_REQ = 4
+GNN_MAX_BATCH = 256
+GNN_FANOUT = (15, 10)
+GNN_CACHE_BYTES = 256 << 20
 
 
 def card_line() -> str:
@@ -936,6 +958,191 @@ def run_mind_stream(dev, params) -> tuple[list, list, float]:
     return mix, counts, err
 
 
+class GNNProbe:
+    """Records, for GNNServeEngine runs, each batch's host ms of sampling
+    and its count of pad references (masked nodes, id 0), host ms of the
+    cache lookup (ending in a synchronisation) with whether it had hot
+    references, and device ms of the forward (CUDA events around
+    ``nn.gnn.apply``, read by ``forward_ms`` once the run has ended)."""
+
+    def __init__(self):
+        self.sample_ms, self.pad_refs, self.lookup_ms, self.hot_lookups = [], [], [], []
+        self._events = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.graph import sampler
+        from repro_torch.nn import gnn
+        from repro_torch.serve.cache import EmbeddingCache
+
+        self._saved = sampler.sample_blocks, EmbeddingCache.lookup, gnn.apply
+        sample, lookup, apply = self._saved
+        probe = self
+
+        def timed_sample(*args):
+            t0 = time.perf_counter()
+            out = sample(*args)
+            probe.sample_ms.append((time.perf_counter() - t0) * 1e3)
+            probe.pad_refs.append(int((~out.node_mask).sum()))
+            return out
+
+        def timed_lookup(cache, ids):
+            t0 = time.perf_counter()
+            out, stats = lookup(cache, ids)
+            torch.cuda.synchronize()
+            probe.lookup_ms.append((time.perf_counter() - t0) * 1e3)
+            probe.hot_lookups.append(stats.hot_hits > 0)
+            return out, stats
+
+        def timed_apply(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = apply(*args)
+            end.record()
+            probe._events.append((start, end))
+            return out
+
+        sampler.sample_blocks, EmbeddingCache.lookup, gnn.apply = (timed_sample, timed_lookup,
+                                                                   timed_apply)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.graph import sampler
+        from repro_torch.nn import gnn
+        from repro_torch.serve.cache import EmbeddingCache
+
+        sampler.sample_blocks, EmbeddingCache.lookup, gnn.apply = self._saved
+
+    def forward_ms(self) -> list[float]:
+        return [start.elapsed_time(end) for start, end in self._events]
+
+
+def run_gnn_serving(dev, g2) -> tuple[list, list, float]:
+    """Phase 10: GIN served through the GRASP feature cache over ``g2`` (the
+    ``lj`` graph of phase 5). Returns K1's launch mix on the cache path (the
+    check batch's lookup), the GRASP run's launches and K1's error there."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.graph import sampler
+    from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+    from repro_torch.nn import gnn
+    from repro_torch.serve.cache import CacheConfig
+    from repro_torch.serve.engine import GNNServeEngine
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    n = g2.num_nodes
+    print(f"GNN serving graph: the lj graph of phase 5 ({n} vertices, {g2.num_edges} edges) "
+          f"stands in for ogb_products as the JAX package's gnn_full_graph_batch builds it: "
+          f"rmat(ceil(log2 2,449,029) = 22, 61,859,140 // 2^22 = 14), scale 22 and edge factor "
+          f"14, the shape of this graph")
+    cfg = get_arch("gin-tu")
+    t0 = time.perf_counter()
+    feats = np.random.default_rng(0).standard_normal((n, GNN_D_FEAT), dtype=np.float32)
+    params = gnn.init(torch.Generator().manual_seed(0), cfg, GNN_D_FEAT, device=dev)
+    seeds = np.random.default_rng(1).integers(0, n, (GNN_REQUESTS, GNN_SEEDS_PER_REQ))
+    print(f"GNN features {feats.shape} f32 ({feats.nbytes / 2**30:.3f} GiB on the host) and "
+          f"{cfg.name} parameters ({cfg.n_layers} layers, d {cfg.d_hidden}, d_out {cfg.d_out}, "
+          f"learnable eps) in {time.perf_counter() - t0:.1f} s")
+
+    # the check batch: GIN over the densely gathered features, on the card
+    # (this also warms the card's kernels) and on the CPU
+    blocks = sampler.sample_blocks(g2, seeds[:GNN_MAX_BATCH].reshape(-1), GNN_FANOUT,
+                                   np.random.default_rng(2))
+    x = torch.where(torch.from_numpy(blocks.node_mask)[:, None],
+                    torch.from_numpy(feats[blocks.node_ids]), 0.0)
+    dense_batch = {"x": x, "src": blocks.src, "dst": blocks.dst, "emask": blocks.emask}
+    local = torch.from_numpy(blocks.seeds_local).long()
+    dense = gnn.apply(params, cfg, dict(dense_batch, x=x.to(dev)))[local.to(dev)].cpu()
+    on_cpu = gnn.apply(gnn.to_device(params, torch.device("cpu")), cfg, dense_batch)[local]
+    dev_batch = dict(dense_batch, x=x.to(dev))
+    fwd = lambda: gnn.apply(params, cfg, dev_batch)  # noqa: E731
+    print(f"GNN check batch: {blocks.n_sub} nodes ({int(blocks.node_mask.sum())} sampled, the "
+          f"rest pads of node 0), {blocks.src.shape[0]} edges ({int(blocks.emask.sum())} valid), "
+          f"lookup of {blocks.n_sub * GNN_D_FEAT * 4 / 1e6:.1f} MB of rows; GIN forward on the "
+          f"card {time_ms(fwd, reps=10):.4f} ms (event), device busy "
+          f"{fmt_ms(device_ms(fwd, reps=10))} (profiler), host {host_us(fwd, calls=50):.1f} "
+          f"us/call")
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sched = SchedulerConfig(max_batch=GNN_MAX_BATCH, max_queue=GNN_REQUESTS)
+    runs = {}
+    for label, frac, policy in (("grasp", 0.5, "rrpv"), ("unpinned rrpv", 0.0, "rrpv"),
+                                ("unpinned lru", 0.0, "lru")):
+        eng = GNNServeEngine(params, cfg, g2, feats, CacheConfig(GNN_CACHE_BYTES, frac, policy),
+                             sched, fanout=GNN_FANOUT, seeds_per_req=GNN_SEEDS_PER_REQ, seed=0,
+                             device=dev)
+        with GNNProbe() as probe:
+            hot_gather_hot_part.launches = 0
+            t0 = time.perf_counter()
+            reqs = [eng.submit({"seeds": s}) for s in seeds]
+            eng.run_until_idle()
+            wall = time.perf_counter() - t0
+            launches = hot_gather_hot_part.launches
+        snap = eng.metrics.snapshot()
+        c, e2e = snap["counters"], snap["latency"]["e2e"]
+        done = sum(r.status == "done" for r in reqs)
+        fwd = probe.forward_ms()
+        hits, pads = c.get("hot_hits", 0) + c.get("cold_hits", 0), sum(probe.pad_refs)
+        refs = hits + c["misses"]
+        print(f"GNN serving {label}: pinned {eng.cache.hot_size} rows, cold {eng.cache.cold_slots} "
+              f"rows; {done} of {GNN_REQUESTS} requests in {c['batches']} batches, "
+              f"{done / wall:.1f} requests/s; e2e p50 {e2e['p50_s'] * 1e3:.3f} ms p99 "
+              f"{e2e['p99_s'] * 1e3:.3f} ms; hit rate {snap['hit_rate']:.6f} (hot "
+              f"{c.get('hot_hits', 0)} cold {c.get('cold_hits', 0)} misses {c['misses']}); pad "
+              f"references {pads} of {refs}, hit rate over the others "
+              f"{(hits - pads) / (refs - pads):.6f} (every pad counted a hit: all are but node "
+              f"0's first fill in an unpinned cache); per "
+              f"batch median: sampling (host) {statistics.median(probe.sample_ms):.3f} ms, cache "
+              f"lookup (host) {statistics.median(probe.lookup_ms):.3f} ms, forward (device) "
+              f"{statistics.median(fwd):.3f} ms (max {max(fwd):.3f}); K1 launches {launches}; "
+              f"{wall:.1f} s")
+        if done != GNN_REQUESTS or c["completed"] != GNN_REQUESTS:
+            fail(f"GNN serving {label}: {done} of {GNN_REQUESTS} requests completed")
+        for r in reqs:
+            if r.result.shape != (GNN_SEEDS_PER_REQ, cfg.d_out) or not np.isfinite(r.result).all():
+                fail(f"GNN serving {label}: a result is not finite {(GNN_SEEDS_PER_REQ, cfg.d_out)}")
+        runs[label] = (eng if label == "grasp" else None, probe, launches, snap)
+        del eng
+    eng, probe, launches, snap = runs["grasp"]
+    batches = snap["counters"]["batches"]
+    if launches < batches or launches < sum(probe.hot_lookups):
+        fail(f"GNN serving grasp: {launches} K1 launches for {batches} batches")
+    for label in ("unpinned rrpv", "unpinned lru"):
+        if runs[label][2] != 0:
+            fail(f"GNN serving {label}: K1 launched {runs[label][2]} times with nothing pinned")
+    print("GNN serving hit rates (no winner asserted): " + ", ".join(
+        f"{k} {v[3]['hit_rate']:.6f}" for k, v in runs.items()))
+
+    # the check batch through the GRASP engine's cache: K1, then the forward
+    got = torch.from_numpy(eng.forward_blocks(blocks))
+    if got.shape != (blocks.seeds_local.shape[0], cfg.d_out) or not torch.isfinite(got).all():
+        fail("GNN serving: forward_blocks is not finite logits of the expected shape")
+    diff = float((got - dense).abs().max())
+    cpu_diff = float((got - on_cpu).abs().max())
+    print(f"GNN forward_blocks {tuple(got.shape)}: vs GIN over the dense gather on the card max "
+          f"abs diff {diff:.3e}; vs the port on the CPU {cpu_diff:.3e}")
+    if not torch.allclose(got, dense, rtol=1e-5, atol=1e-6):
+        fail(f"GNN serving: forward_blocks differs from the dense gather by {diff:.3e}")
+    if not torch.allclose(got, on_cpu, rtol=1e-4, atol=1e-5):
+        fail(f"GNN serving: the card differs from the CPU by {cpu_diff:.3e}")
+    hot_size = eng.cache.hot_size
+    ids = blocks.node_ids
+    idx = torch.as_tensor(np.where(ids < hot_size, ids, -1).astype(np.int32)).to(dev)
+    err = check_k1_exact("gnn serve cache", eng.cache._hot_block, idx)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"GNN serving: peak device memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} "
+          f"GiB above the earlier phases' tensors)")
+    table = torch.from_numpy(feats).to(dev)
+    return [(table, hot_size, idx)], [launches], err
+
+
 def same_outputs(label: str, got, want, rtol: float | None = None, atol: float = 0.0) -> str:
     """Fail unless ``got`` (on the card) equals ``want`` (on the CPU), or is
     within ``rtol``/``atol`` of it; returns a short account of the match."""
@@ -1181,6 +1388,7 @@ def main() -> int:
     phase("9a (graph suite)", run_graph_suite, dev)
     phase("9b (policies)", run_policies, qs_graph)
     prd_launches = phase("9c (real-size suite)", run_real_suite, dev, real_graph)
+    gnn_mix, gnn_counts, gnn_err = phase("10 (GNN serving)", run_gnn_serving, dev, real_graph)
 
     # the quickstart launches K1 once per PageRank iteration, then once in step 5
     # the serve cache runs K1's hot-part mode; the others go through ops.hot_gather
@@ -1192,6 +1400,7 @@ def main() -> int:
                           two_tier=False)
     k1_dense = k1_numbers("mind serve_scores hot", dense_mix, [dense_launches], dense_err,
                           two_tier=True)
+    k1_gnn = k1_numbers("gnn serve cache", gnn_mix, gnn_counts, gnn_err, two_tier=False)
     # PageRank-Delta gathers (N,) f32 over the same graph as PageRank
     k1_prd = k1_numbers("real-size pagerank-delta", k1_mix["real-size pagerank"],
                         [prd_launches], k1_err["real-size pagerank"], two_tier=True)
@@ -1208,6 +1417,8 @@ def main() -> int:
              path="mind serve_scores hot", **k1_dense),
         dict(name="hot_gather", route="cuda", source=source, replaces=k1_tpu,
              path="real-size pagerank-delta", **k1_prd),
+        dict(name="hot_gather", route="cuda", source=source, replaces=k1_tpu,
+             path="gnn serve cache", **k1_gnn),
         dict(name="gather_segsum", route="cuda", source=source,
              replaces="src/repro/kernels/hot_gather/hot_gather.py:58",
              path="aligned pull sum", **k2),

@@ -1,7 +1,8 @@
 """Carry the reference's state across: the graph, the plan and the trace
-of the graph pipeline, and MIND's parameters. Each function takes the JAX
-package's numpy fields (or any arrays of the same values) and returns the
-port's object, with the dtypes the port's code expects."""
+of the graph pipeline, MIND's parameters and the GNNs' parameters. Each
+function takes the JAX package's numpy fields (or any arrays of the same
+values) and returns the port's object, with the dtypes the port's code
+expects."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -14,6 +15,7 @@ from repro_torch import devices
 from repro_torch.core.cachesim import Trace
 from repro_torch.core.plan import GraspPlan
 from repro_torch.graph.csr import CSR
+from repro_torch.nn import gnn
 
 
 def csr_from_numpy(indptr, indices, num_nodes: int,
@@ -65,3 +67,12 @@ def mind_params_from_numpy(params: Dict, device: str | torch.device = devices.DE
     for k in tables:
         out[k] = tensor(params[k])
     return out
+
+
+def gnn_params_from_numpy(params, device: str | torch.device = devices.DEFAULT_DEVICE):
+    """GNN parameters from the JAX ``nn.gnn.init`` pytree as numpy arrays
+    (nested dicts and lists) -> the same tree of tensors on ``device``, each
+    with its array's dtype; ``None`` entries (GIN's ``eps`` when it is not
+    learnable, NequIP's ``r02``/``r22`` when ``l_max < 2``) stay ``None``."""
+    dev = devices.resolve(device)
+    return gnn.tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), params)

@@ -1,16 +1,19 @@
-"""Synthetic, seeded recsys batches (numpy, host side).
+"""Synthetic, seeded recsys and GNN batches (numpy, host side).
 
-Recsys item ids are Zipf-distributed: the skew GRASP exploits. The same
-``numpy.random.Generator`` state gives the same ids as the JAX package's
-pipeline, so both packages can be fed one stream.
+Recsys item ids are Zipf-distributed: the skew GRASP exploits. GNN batches
+come from RMAT graphs (a full graph), random small molecules, or the
+fanout sampler (a minibatch). The same ``numpy.random.Generator`` state
+gives the same arrays as the JAX package's pipeline, so both packages can
+be fed one stream.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
-from repro_torch.configs.base import RecsysConfig, RecsysShape
+from repro_torch.configs.base import GNNShape, RecsysConfig, RecsysShape
+from repro_torch.graph import generate, sampler
 
 
 def zipf_ids(rng: np.random.Generator, shape, vocab: int, a: float = 1.2) -> np.ndarray:
@@ -36,3 +39,68 @@ def recsys_batch(rng: np.random.Generator, cfg: RecsysConfig, shape: RecsysShape
     elif shape.kind == "retrieval":
         out["candidates"] = rng.integers(0, cfg.n_items, shape.n_candidates).astype(np.int32)
     return out
+
+
+def gnn_full_graph_batch(rng: np.random.Generator, shape: GNNShape,
+                         n_classes: int = 47, scale_override: Optional[int] = None) -> Dict:
+    """Synthetic stand-in with the requested node/edge counts (RMAT skew).
+    ``scale_override`` shrinks for smoke tests."""
+    if scale_override is not None:
+        n = 1 << scale_override
+        e = n * max(shape.n_edges // max(shape.n_nodes, 1), 2)
+    else:
+        n, e = shape.n_nodes, shape.n_edges
+    g = generate.rmat(int(np.ceil(np.log2(n))), max(e // (1 << int(np.ceil(np.log2(n)))), 1),
+                      seed=int(rng.integers(0, 2**31)))
+    nn_, ee = g.num_nodes, g.num_edges
+    pad = (-ee) % 512  # shardability padding, as the JAX package pads
+    src = np.pad(g.indices.astype(np.int32), (0, pad))
+    dst = np.pad(g.dst_ids().astype(np.int32), (0, pad))
+    emask = np.pad(np.ones(ee, bool), (0, pad))
+    ee += pad
+    return {
+        "x": rng.standard_normal((nn_, shape.d_feat)).astype(np.float32),
+        "src": src,
+        "dst": dst,
+        "emask": emask,
+        "labels": rng.integers(0, n_classes, nn_).astype(np.int32),
+        "coords": rng.standard_normal((nn_, 3)).astype(np.float32),
+        "species": rng.integers(0, 8, nn_).astype(np.int32),
+    }
+
+
+def gnn_molecule_batch(rng: np.random.Generator, shape: GNNShape) -> Dict:
+    """Batched small molecules, flattened with graph_id segments."""
+    bg, n, e = shape.batch_graphs, shape.n_nodes, shape.n_edges
+    nn_ = bg * n
+    coords = rng.standard_normal((nn_, 3)).astype(np.float32) * 2.0
+    src = np.concatenate([rng.integers(0, n, e) + i * n for i in range(bg)])
+    dst = np.concatenate([rng.integers(0, n, e) + i * n for i in range(bg)])
+    keep = src != dst
+    return {
+        "x": rng.standard_normal((nn_, shape.d_feat)).astype(np.float32),
+        "src": src.astype(np.int32),
+        "dst": dst.astype(np.int32),
+        "emask": keep,
+        "coords": coords,
+        "species": rng.integers(0, 8, nn_).astype(np.int32),
+        "graph_id": np.repeat(np.arange(bg), n).astype(np.int32),
+        "labels": rng.standard_normal(bg).astype(np.float32),
+    }
+
+
+def gnn_minibatch(rng: np.random.Generator, g, shape: GNNShape, d_feat: int,
+                  n_classes: int = 47) -> Dict:
+    """Uniform seeds expanded by the fanout sampler into one block graph."""
+    seeds = rng.integers(0, g.num_nodes, shape.batch_nodes)
+    blocks = sampler.sample_blocks(g, seeds, tuple(shape.fanout), rng)
+    return {
+        "x": rng.standard_normal((blocks.n_sub, d_feat)).astype(np.float32),
+        "src": blocks.src,
+        "dst": blocks.dst,
+        "emask": blocks.emask,
+        "labels": rng.integers(0, n_classes, shape.batch_nodes).astype(np.int32),
+        "seeds": blocks.seeds_local,
+        "coords": rng.standard_normal((blocks.n_sub, 3)).astype(np.float32),
+        "species": rng.integers(0, 8, blocks.n_sub).astype(np.int32),
+    }

@@ -1,1 +1,2 @@
-"""Graphs: CSR, synthetic generators, scaled datasets, LLC traces."""
+"""Graphs: CSR, synthetic generators, scaled datasets, LLC traces, the
+fanout neighbour sampler."""

@@ -1,1 +1,2 @@
-"""Neural-network building blocks (``layers``) and models (``recsys``)."""
+"""Neural-network building blocks (``layers``) and models (``gnn``,
+``recsys``)."""

@@ -1,0 +1,383 @@
+"""GNN architectures: GIN, PNA, EGNN, NequIP-lite (forward).
+
+Message passing is a gather (``index_select`` over edge endpoint indices)
+and a segment reduction over ``dst`` (``index_add_``; PNA's max and min by
+``scatter_reduce``), as the JAX package writes it with ``jnp.take`` and
+``jax.ops.segment_*``. This is the Property-Array gather the paper
+targets: with DBG reordering the hot (high-degree) node rows form a
+prefix, which GNN serving reads through the GRASP feature cache and its
+hot-gather kernel (K1).
+
+Graph batch dict convention (numpy arrays or tensors; every function
+computes on the device its parameters lie on):
+  x      (N, F) float32 node features
+  src    (E,)  int32 edge sources
+  dst    (E,)  int32 edge destinations
+  emask  (E,)  bool   valid-edge mask (padding)
+  coords (N, 3) float32 (egnn / nequip)
+  species(N,)  int32   (nequip)
+  graph_id (N,) int32  molecule batching (segment readout)
+
+Parameters are nested dicts and lists of tensors, with ``None`` where the
+JAX package has one (GIN's ``eps`` when it is not learnable, NequIP's
+``r02``/``r22`` when ``l_max < 2``). ``dense`` computes in bfloat16 unless
+told otherwise, as in the JAX package: every model passes float32 except
+NequIP's ``self0`` and ``gate`` products, so NequIP's scalar features are
+bfloat16 between layers there too.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import devices
+from repro_torch.configs.base import GNNConfig
+from repro_torch.nn import layers as L
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor of a parameter tree; ``None`` stays ``None``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+def to_device(params, device: torch.device):
+    """The parameter tree with every tensor on ``device``."""
+    return tree_map(lambda t: t.to(device), params)
+
+
+def _device_of(params) -> torch.device:
+    if isinstance(params, torch.Tensor):
+        return params.device
+    values = params.values() if isinstance(params, dict) else params
+    for v in values:
+        if v is not None:
+            return _device_of(v)
+    raise ValueError("parameter tree holds no tensor")
+
+
+def _get(batch: Dict, key: str, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(batch[key], device=dev)
+
+
+def _edges(batch: Dict, dev: torch.device):
+    """(src, dst) as int64 (what ``scatter_reduce`` takes) and emask."""
+    return (_get(batch, "src", dev).long(), _get(batch, "dst", dev).long(),
+            _get(batch, "emask", dev).bool())
+
+
+def _seg_sum(x: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
+    return x.new_zeros((n,) + tuple(x.shape[1:])).index_add_(0, dst, x)
+
+
+def _seg_extreme(x: torch.Tensor, dst: torch.Tensor, n: int, reduce: str) -> torch.Tensor:
+    """Segment ``amax``/``amin`` of (E, d) ``x`` over ``dst``, with 0 where
+    the JAX package's ``segment_max``/``segment_min`` give a non-finite
+    value: empty segments keep the zero base, and segments whose every
+    edge is masked to -inf/+inf reduce to it and are zeroed."""
+    out = x.new_zeros((n,) + tuple(x.shape[1:]))
+    out.scatter_reduce_(0, dst[:, None].expand_as(x), x, reduce, include_self=False)
+    return torch.where(torch.isfinite(out), out, 0.0)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the JAX package computes it on the CPU: in
+    float32 as ``torch.sigmoid`` (to an ulp); in bfloat16 as
+    ``1 / (1 + exp(-x))`` with every step rounded to bfloat16, the form
+    XLA expands it to there (``torch.sigmoid`` rounds once and differs in
+    a third of the values)."""
+    if x.dtype == torch.bfloat16:
+        return 1 / (1 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)`` (``F.silu`` rounds differently)."""
+    return x * _sigmoid(x)
+
+
+def _mlp_init(gen: torch.Generator, dims):
+    return [L.dense_init(gen, a, b) for a, b in zip(dims[:-1], dims[1:])]
+
+
+def _mlp(params, x, act=_silu, compute_dtype=torch.float32):
+    for i, p in enumerate(params):
+        x = L.dense(p, x, compute_dtype)
+        if i < len(params) - 1:
+            x = act(x)
+    return x
+
+
+def _deg(dst, n, emask):
+    ones = torch.where(emask, 1.0, 0.0)
+    return _seg_sum(ones, dst, n)
+
+
+# ---------------------------------------------------------------------------
+# GIN (Xu et al. 2019) — sum aggregator, learnable eps
+# ---------------------------------------------------------------------------
+def gin_init(gen: torch.Generator, cfg: GNNConfig, d_feat: int):
+    d = cfg.d_hidden
+    layers = []
+    for i in range(cfg.n_layers):
+        din = d_feat if i == 0 else d
+        layers.append({
+            "mlp": _mlp_init(gen, [din, d, d]),
+            "eps": torch.zeros(()) if cfg.eps_learnable else None,
+            "ln": L.layernorm_init(d),
+        })
+    return {"layers": layers, "out": L.dense_init(gen, d, cfg.d_out)}
+
+
+def gin_apply(params, cfg: GNNConfig, batch: Dict):
+    dev = _device_of(params)
+    h = _get(batch, "x", dev)
+    src, dst, emask = _edges(batch, dev)
+    n = h.shape[0]
+    for lp in params["layers"]:
+        msg = h.index_select(0, src)
+        msg = torch.where(emask[:, None], msg, 0.0)
+        agg = _seg_sum(msg, dst, n)
+        eps = lp["eps"] if lp["eps"] is not None else 0.0
+        h = _mlp(lp["mlp"], (1.0 + eps) * h + agg)
+        h = F.relu(L.layernorm(lp["ln"], h))
+    return L.dense(params["out"], h, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# PNA (Corso et al. 2020) — multi-aggregator + degree scalers
+# ---------------------------------------------------------------------------
+def pna_init(gen: torch.Generator, cfg: GNNConfig, d_feat: int):
+    d = cfg.d_hidden
+    n_agg = len(cfg.aggregators) * len(cfg.scalers)
+    layers = []
+    for i in range(cfg.n_layers):
+        din = d_feat if i == 0 else d
+        layers.append({
+            "pre": _mlp_init(gen, [2 * din, d]),
+            "post": _mlp_init(gen, [n_agg * d + din, d, d]),
+            "ln": L.layernorm_init(d),
+        })
+    return {"layers": layers, "out": L.dense_init(gen, d, cfg.d_out)}
+
+
+def pna_apply(params, cfg: GNNConfig, batch: Dict, mean_log_deg: float = 1.0):
+    dev = _device_of(params)
+    h = _get(batch, "x", dev)
+    src, dst, emask = _edges(batch, dev)
+    n = h.shape[0]
+    deg = _deg(dst, n, emask)
+    log_deg = torch.log1p(deg)
+    delta = max(mean_log_deg, 1e-3)
+    em = emask[:, None]
+
+    for lp in params["layers"]:
+        hi = h.index_select(0, dst)
+        hj = h.index_select(0, src)
+        m = _mlp(lp["pre"], torch.cat([hi, hj], dim=-1))
+        m = torch.where(em, m, 0.0)
+
+        s = _seg_sum(m, dst, n)
+        cnt = torch.clamp(deg, min=1.0)[:, None]
+        mean = s / cnt
+        mx = _seg_extreme(torch.where(em, m, -math.inf), dst, n, "amax")
+        mn = _seg_extreme(torch.where(em, m, math.inf), dst, n, "amin")
+        sq = _seg_sum(m * m, dst, n) / cnt
+        # eps inside sqrt, as in the JAX package (its gradient at 0)
+        std = torch.sqrt(torch.clamp(sq - mean * mean, min=0.0) + 1e-5)
+
+        aggs = {"mean": mean, "max": mx, "min": mn, "std": std}
+        scaled = []
+        for a in cfg.aggregators:
+            base = aggs[a]
+            for sc in cfg.scalers:
+                if sc == "identity":
+                    scaled.append(base)
+                elif sc == "amplification":
+                    scaled.append(base * (log_deg / delta)[:, None])
+                elif sc == "attenuation":
+                    scaled.append(base * (delta / torch.clamp(log_deg, min=1e-3))[:, None])
+        z = torch.cat(scaled + [h], dim=-1)
+        h = F.relu(L.layernorm(lp["ln"], _mlp(lp["post"], z)))
+    return L.dense(params["out"], h, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# EGNN (Satorras et al. 2021) — E(n)-equivariant, scalar-distance messages
+# ---------------------------------------------------------------------------
+def egnn_init(gen: torch.Generator, cfg: GNNConfig, d_feat: int):
+    d = cfg.d_hidden
+    layers = []
+    for i in range(cfg.n_layers):
+        din = d_feat if i == 0 else d
+        layers.append({
+            "phi_e": _mlp_init(gen, [2 * din + 1, d, d]),
+            "phi_x": _mlp_init(gen, [d, d, 1]),
+            "phi_h": _mlp_init(gen, [din + d, d, d]),
+        })
+    return {"layers": layers, "out": L.dense_init(gen, d, cfg.d_out)}
+
+
+def egnn_apply(params, cfg: GNNConfig, batch: Dict):
+    """Returns (node features (N, d_out), updated coordinates (N, 3))."""
+    dev = _device_of(params)
+    h = _get(batch, "x", dev)
+    coords = _get(batch, "coords", dev)
+    src, dst, emask = _edges(batch, dev)
+    n = h.shape[0]
+    for lp in params["layers"]:
+        xi, xj = coords.index_select(0, dst), coords.index_select(0, src)
+        diff = xi - xj
+        d2 = torch.sum(diff * diff, dim=-1, keepdim=True)
+        hi, hj = h.index_select(0, dst), h.index_select(0, src)
+        m = _mlp(lp["phi_e"], torch.cat([hi, hj, d2], dim=-1))
+        m = _silu(m)
+        m = torch.where(emask[:, None], m, 0.0)
+        # coordinate update (equivariant), divided by the masked degree
+        w = _mlp(lp["phi_x"], m)
+        xupd = _seg_sum(diff * w, dst, n)
+        cnt = torch.clamp(_deg(dst, n, emask), min=1.0)[:, None]
+        coords = coords + xupd / cnt
+        # feature update
+        magg = _seg_sum(m, dst, n)
+        h = _mlp(lp["phi_h"], torch.cat([h, magg], dim=-1))
+    return L.dense(params["out"], h, torch.float32), coords
+
+
+# ---------------------------------------------------------------------------
+# NequIP-lite — O(3)-equivariant with restricted tensor-product paths
+# (the restricted path set {0⊗Yl→l, l⊗Y0→l, 1⊗Y1→0} is individually
+#  equivariant; full e3nn CG products are out of scope, as in the JAX package)
+# ---------------------------------------------------------------------------
+def _bessel_rbf(r, n_rbf, cutoff):
+    # Bessel radial basis with smooth polynomial cutoff (NequIP defaults)
+    n = torch.arange(1, n_rbf + 1, dtype=torch.float32, device=r.device)
+    rr = torch.clamp(r, min=1e-6)
+    rbf = math.sqrt(2.0 / cutoff) * torch.sin(n * math.pi * rr[..., None] / cutoff) / rr[..., None]
+    x = torch.clamp(r / cutoff, 0.0, 1.0)
+    env = 1.0 - 10.0 * x**3 + 15.0 * x**4 - 6.0 * x**5  # C2-smooth cutoff
+    return rbf * env[..., None]
+
+
+def _y2(u):
+    """5 real l=2 spherical-harmonic components of unit vector u (N,3)."""
+    x, y, z = u[..., 0], u[..., 1], u[..., 2]
+    c = math.sqrt(3.0)
+    return torch.stack(
+        [c * x * y, c * y * z, 0.5 * (3 * z * z - 1.0), c * x * z,
+         0.5 * c * (x * x - y * y)],
+        dim=-1,
+    )
+
+
+def nequip_init(gen: torch.Generator, cfg: GNNConfig, n_species: int = 8):
+    d = cfg.d_hidden
+    layers = []
+    for _ in range(cfg.n_layers):
+        radial = {k: _mlp_init(gen, [cfg.n_rbf, d, d]) for k in ("r00", "r01", "r11", "r110")}
+        for k in ("r02", "r22"):
+            radial[k] = _mlp_init(gen, [cfg.n_rbf, d, d]) if cfg.l_max >= 2 else None
+        layers.append({
+            # radial nets: rbf -> per-channel weights for each TP path
+            **radial,
+            "self0": L.dense_init(gen, d, d),
+            "self1": L.dense_init(gen, d, d),
+            "self2": L.dense_init(gen, d, d),
+            "gate": L.dense_init(gen, d, 2 * d),
+        })
+    embed = torch.randn((n_species, d), generator=gen, dtype=torch.float32, device=gen.device)
+    return {"embed": embed * 0.5, "layers": layers, "out": _mlp_init(gen, [d, d, 1])}
+
+
+def nequip_apply(params, cfg: GNNConfig, batch: Dict):
+    """Returns per-node energy (N,). Features: s (N,d), v (N,d,3), t (N,d,5);
+    all channel-major."""
+    dev = _device_of(params)
+    src, dst, emask = _edges(batch, dev)
+    coords = _get(batch, "coords", dev)
+    species = _get(batch, "species", dev).long()
+    n = coords.shape[0]
+    d = cfg.d_hidden
+
+    rij = coords.index_select(0, dst) - coords.index_select(0, src)
+    r = torch.sqrt(torch.clamp(torch.sum(rij * rij, dim=-1), min=1e-12))
+    u = rij / r[:, None]
+    rbf = _bessel_rbf(r, cfg.n_rbf, cfg.cutoff)          # (E, n_rbf)
+    y1 = u                                                # (E, 3)
+    y2 = _y2(u) if cfg.l_max >= 2 else None               # (E, 5)
+    valid = emask & (r < cfg.cutoff)
+
+    s = params["embed"].index_select(0, species)          # (N, d)
+    v = torch.zeros((n, d, 3), device=dev)
+    t = torch.zeros((n, d, 5), device=dev) if cfg.l_max >= 2 else None
+
+    def seg(x, w):
+        x = torch.where(valid.reshape((-1,) + (1,) * (x.ndim - 1)), x * w, 0.0)
+        return _seg_sum(x, dst, n)
+
+    for lp in params["layers"]:
+        sj = s.index_select(0, src)                       # (E, d)
+        vj = v.index_select(0, src)                       # (E, d, 3)
+        w00 = _mlp(lp["r00"], rbf)                        # (E, d)
+        w01 = _mlp(lp["r01"], rbf)
+        w11 = _mlp(lp["r11"], rbf)
+        w110 = _mlp(lp["r110"], rbf)
+
+        # l=0 out: 0⊗Y0→0 and 1⊗Y1→0 (dot product path)
+        s_new = seg(sj, w00) + seg(torch.einsum("edk,ek->ed", vj, y1), w110)
+        # l=1 out: 0⊗Y1→1 and 1⊗Y0→1
+        v_new = seg(sj[:, :, None] * y1[:, None, :], w01[:, :, None]) + seg(
+            vj, w11[:, :, None]
+        )
+        if cfg.l_max >= 2:
+            tj = t.index_select(0, src)
+            w02 = _mlp(lp["r02"], rbf)
+            w22 = _mlp(lp["r22"], rbf)
+            t_new = seg(sj[:, :, None] * y2[:, None, :], w02[:, :, None]) + seg(
+                tj, w22[:, :, None]
+            )
+        # self-interaction (channel mixing) + gated nonlinearity; self0 and
+        # gate take dense's bfloat16 default, as in the JAX package
+        s_mix = L.dense(lp["self0"], s + s_new)
+        v_mix = torch.einsum("ndk,do->nok", v + v_new, lp["self1"]["w"])
+        gates = L.dense(lp["gate"], _silu(s_mix))
+        g1, g0 = gates[:, :d], gates[:, d:]
+        s = _silu(s_mix + g0)
+        v = v_mix * _sigmoid(g1)[:, :, None]
+        if cfg.l_max >= 2:
+            t_mix = torch.einsum("ndk,do->nok", t + t_new, lp["self2"]["w"])
+            t = t_mix * _sigmoid(g1)[:, :, None]
+
+    energy = _mlp(params["out"], s)[:, 0]                 # invariant readout
+    return energy
+
+
+KINDS = {
+    "gin": (gin_init, gin_apply),
+    "pna": (pna_init, pna_apply),
+    "egnn": (egnn_init, egnn_apply),
+    "nequip": (nequip_init, nequip_apply),
+}
+
+
+def init(gen: torch.Generator, cfg: GNNConfig, d_feat: int,
+         device: str | torch.device = devices.DEFAULT_DEVICE):
+    """Random parameters of ``cfg.kind`` drawn from ``gen`` (on its own
+    device, so one seed gives the same parameters on every device), placed
+    on ``device``. NequIP embeds species and ignores ``d_feat``."""
+    dev = devices.resolve(device)
+    if cfg.kind == "nequip":
+        params = nequip_init(gen, cfg)
+    else:
+        params = KINDS[cfg.kind][0](gen, cfg, d_feat)
+    return to_device(params, dev)
+
+
+def apply(params, cfg: GNNConfig, batch: Dict):
+    return KINDS[cfg.kind][1](params, cfg, batch)

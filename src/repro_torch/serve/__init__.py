@@ -4,7 +4,7 @@ inference subsystem.
 ``cache`` (two-region GRASP embedding cache, hot rows read by K1 on the
 device), ``scheduler`` (continuous batching, admission control, deadlines,
 shed load), ``metrics`` (hit/latency accounting + JSON snapshots) and
-``engine`` (the MIND serving engine and its stream loop).
+``engine`` (the MIND and GNN serving engines, and MIND's stream loop).
 """
 from repro_torch.serve.cache import (
     CacheConfig,
@@ -12,6 +12,7 @@ from repro_torch.serve.cache import (
     LookupStats,
     SnapshotError,
 )
+from repro_torch.serve.engine import GNNServeEngine, RecsysServeEngine
 from repro_torch.serve.metrics import LatencyHistogram, ServeMetrics
 from repro_torch.serve.refcache import ReferenceEmbeddingCache
 from repro_torch.serve.scheduler import (
@@ -24,6 +25,8 @@ from repro_torch.serve.scheduler import (
 __all__ = [
     "CacheConfig",
     "EmbeddingCache",
+    "GNNServeEngine",
+    "RecsysServeEngine",
     "LookupStats",
     "ReferenceEmbeddingCache",
     "SnapshotError",

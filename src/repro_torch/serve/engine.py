@@ -1,4 +1,4 @@
-"""Serving engine: cache + scheduler wired to the MIND forward.
+"""Serving engines: cache + scheduler wired to the nn forward paths.
 
 ``RecsysServeEngine`` serves MIND candidate-scoring requests: history and
 candidate item embeddings are gathered through the GRASP
@@ -8,10 +8,18 @@ capsule-routing math (``nn.recsys.user_interests_from_emb`` /
 *after* the cache lookup, so the forward sees one shape while the cache
 only ever sees real references.
 
+``GNNServeEngine`` serves node-classification requests: seed nodes are
+expanded by the fanout sampler, node features are gathered through the
+cache (degree-ordered table => hot prefix = high-degree nodes, the paper's
+High Reuse Region, read by K1 on the device), and the GIN forward runs on
+the padded block graph. Its partial batches are padded with seed node 0
+*before* sampling, as in the JAX package, so the pad seeds' blocks go
+through the cache too.
+
 ``run_recsys_stream`` drives a full closed-loop run on a zipf request
 stream against a virtual clock — the entry point the serve CLI uses.
 
-The GNN and LM engines join with their slices.
+The LM engine joins with its slice.
 """
 from __future__ import annotations
 
@@ -23,8 +31,10 @@ import numpy as np
 import torch
 
 from repro_torch import devices
-from repro_torch.configs.base import RecsysConfig
+from repro_torch.configs.base import GNNConfig, RecsysConfig
 from repro_torch.data.pipeline import zipf_ids
+from repro_torch.graph import sampler
+from repro_torch.nn import gnn as gnn_mod
 from repro_torch.nn import recsys as recsys_mod
 from repro_torch.serve.cache import CacheConfig, EmbeddingCache
 from repro_torch.serve.metrics import ServeMetrics
@@ -153,6 +163,80 @@ class RecsysServeEngine(_EngineBase):
             torch.zeros((w, h), dtype=torch.bool, device=dev),
             torch.zeros((w, candidates, d), device=dev),
         ).cpu()
+
+
+class GNNServeEngine(_EngineBase):
+    """GIN node-classification serving over a cached node-feature table.
+
+    Request payload: ``{"seeds": (S,)}`` with exactly ``seeds_per_req``
+    seed node ids; result: ``(S, d_out)`` logits. The feature table is
+    degree-ordered so the cache's pinned prefix covers the hub nodes every
+    sampled block touches; the pinned region is capped at the graph's
+    hot-vertex count (out-degree >= average). ``features`` stays on the
+    host as the cache's backing store; ``params`` and the cache's blocks
+    are placed on ``device``. Sampling draws from the engine's own
+    ``np.random.default_rng(seed)``.
+    """
+
+    def __init__(
+        self,
+        params: Dict,
+        cfg: GNNConfig,
+        graph,                       # graph.csr.CSR, degree-ordered ids
+        features: np.ndarray,        # (N, F) node-feature table
+        cache_config: CacheConfig,
+        sched_config: SchedulerConfig,
+        fanout=(5, 5),
+        seeds_per_req: int = 4,
+        metrics: Optional[ServeMetrics] = None,
+        clock=time.monotonic,
+        seed: int = 0,
+        service_model=None,
+        device: str | torch.device = devices.DEFAULT_DEVICE,
+    ) -> None:
+        self.device = devices.resolve(device)
+        self.cfg = cfg
+        self.graph = graph
+        self.fanout = tuple(fanout)
+        self.seeds_per_req = seeds_per_req
+        self.metrics = metrics if metrics is not None else ServeMetrics()
+        self.params = gnn_mod.to_device(params, self.device)
+        self.cache = EmbeddingCache(
+            features, cache_config,
+            degree=np.asarray(graph.out_degree), metrics=self.metrics, device=self.device,
+        )
+        self.batcher = ContinuousBatcher(sched_config, clock=clock,
+                                         metrics=self.metrics)
+        self._width = sched_config.max_batch
+        self._rng = np.random.default_rng(seed)
+        self.service_model = service_model
+
+    def forward(self, payloads: List[Dict]) -> np.ndarray:
+        """Logits of a list of request payloads; returns (n, S, d_out)."""
+        n = len(payloads)
+        seeds = np.concatenate([np.asarray(p["seeds"]) for p in payloads])
+        pad_seeds = (self._width - n) * self.seeds_per_req
+        if pad_seeds:
+            seeds = np.pad(seeds, (0, pad_seeds))  # node 0: hottest, harmless
+        blocks = sampler.sample_blocks(self.graph, seeds, self.fanout, self._rng)
+        logits = self.forward_blocks(blocks)
+        per_req = logits[: n * self.seeds_per_req]
+        return per_req.reshape(n, self.seeds_per_req, -1)
+
+    def forward_blocks(self, blocks: sampler.SampledBlocks) -> np.ndarray:
+        """Seed-node logits for one sampled block graph (cache-fed gather)."""
+        dev = self.device
+        x, _ = self.cache.lookup(blocks.node_ids)
+        x = torch.where(torch.from_numpy(blocks.node_mask).to(dev)[:, None], x, 0.0)
+        batch = {
+            "x": x,
+            "src": torch.from_numpy(blocks.src).to(dev),
+            "dst": torch.from_numpy(blocks.dst).to(dev),
+            "emask": torch.from_numpy(blocks.emask).to(dev),
+        }
+        out = gnn_mod.apply(self.params, self.cfg, batch)
+        seeds = torch.from_numpy(blocks.seeds_local).to(dev)
+        return out.index_select(0, seeds).cpu().numpy()   # waits for the device
 
 
 # ---------------------------------------------------------------------------

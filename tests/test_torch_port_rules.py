@@ -40,7 +40,7 @@ FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "graph_suite_torch.py",
     ROOT / "scripts" / "torch_profile_pagerank.py", ROOT / "scripts" / "k1_d1_layouts.py",
-    ROOT / "scripts" / "torch_profile_graph_suite.py",
+    ROOT / "scripts" / "torch_profile_graph_suite.py", ROOT / "scripts" / "torch_profile_gnn_serve.py",
     ROOT / "scripts" / "k1_d1_layouts.cu", ROOT / "scripts" / "k2_k3_times.py",
     ROOT / "scripts" / "k3_layouts.py", ROOT / "scripts" / "k3_layouts.cu"],
     ids=lambda p: str(p.relative_to(ROOT)))
@@ -108,6 +108,22 @@ def test_serving_entry_points_without_device_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         convert.mind_params_from_numpy({k: v for k, v in params.items()})
     assert cache.EmbeddingCache(table, cc, device="cpu").device.type == "cpu"
+
+    from repro_torch.graph import generate
+    from repro_torch.nn import gnn
+
+    gin = base.reduced(base.get_arch("gin-tu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gnn.init(torch.Generator().manual_seed(0), gin, 4)
+    gparams = gnn.init(torch.Generator().manual_seed(0), gin, 4, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.gnn_params_from_numpy(gnn.tree_map(lambda t: t.numpy(), gparams))
+    g = generate.rmat(6, 4, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        engine.GNNServeEngine(gparams, gin, g, table, cc, scheduler.SchedulerConfig())
+    eng = engine.GNNServeEngine(gparams, gin, g, table, cc, scheduler.SchedulerConfig(),
+                                device="cpu")
+    assert eng.cache.device.type == "cpu"
 
 
 def test_kernel_wrappers_refuse_meta_tensors():

@@ -427,6 +427,112 @@ def test_run_recsys_stream_default_params_on_cpu():
     assert snap["counters"]["completed"] == 12 and 0.0 < snap["hit_rate"] <= 1.0
 
 
+# ---------------------------------------------------------------------------
+# GNN serving
+# ---------------------------------------------------------------------------
+def gnn_setup(d=8):
+    """rmat(8, 4) in both packages, seeded features and GIN weights."""
+    from repro.graph import generate as j_gen
+    from repro.nn import gnn as j_gnn
+    from repro_torch.graph import generate as t_gen
+
+    jg, tg = j_gen.rmat(8, 4, seed=0), t_gen.rmat(8, 4, seed=0)
+    feats = np.random.default_rng(0).standard_normal((jg.num_nodes, d)).astype(np.float32)
+    jcfg = j_cfgs.reduced(j_cfgs.get_arch("gin-tu"))
+    tcfg = t_cfgs.reduced(t_cfgs.get_arch("gin-tu"))
+    jp = j_gnn.init(jax.random.PRNGKey(0), jcfg, d)
+    tp = convert.gnn_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    return (jg, jcfg, jp), (tg, tcfg, tp), feats
+
+
+def test_gnn_engine_blocks_match_dense_gather():
+    """tests/test_serve.py's GNN engine test on the port: GIN over
+    cache-gathered features == GIN over densely gathered features, then
+    the queued path."""
+    from repro_torch.graph import sampler
+    from repro_torch.nn import gnn as t_gnn
+
+    _, (g, cfg, params), feats = gnn_setup()
+    eng = t_engine.GNNServeEngine(
+        params, cfg, g, feats, t_cache.CacheConfig(budget_bytes=64 * 8 * 4),
+        SchedulerConfig(max_batch=2, max_queue=8), fanout=(3, 3), seeds_per_req=2,
+        clock=VirtualClock(), service_model=lambda n: 1e-3, device="cpu")
+    blocks = sampler.sample_blocks(g, np.array([1, 5, 9, 200]), (3, 3),
+                                   np.random.default_rng(7))
+    got = eng.forward_blocks(blocks)
+    x = torch.where(torch.from_numpy(blocks.node_mask)[:, None],
+                    torch.from_numpy(feats[blocks.node_ids]), 0.0)
+    ref = t_gnn.apply(params, cfg, {"x": x, "src": blocks.src, "dst": blocks.dst,
+                                    "emask": blocks.emask})
+    np.testing.assert_allclose(got, ref.numpy()[blocks.seeds_local], rtol=1e-5, atol=1e-6)
+    # queued path: per-request logits with the right shape
+    r1 = eng.submit({"seeds": np.array([0, 1])})
+    r2 = eng.submit({"seeds": np.array([2, 3])})
+    eng.run_until_idle()
+    assert eng.metrics.counters["completed"] == 2
+    assert r1.result.shape == r2.result.shape == (2, cfg.d_out)
+    assert np.isfinite(r1.result).all()
+
+
+@pytest.mark.parametrize("hot_fraction,policy,use_kernel", [
+    (0.5, "rrpv", True), (0.5, "rrpv", False), (0.0, "rrpv", True), (0.0, "lru", True)])
+def test_gnn_engine_matches_jax_engine(monkeypatch, hot_fraction, policy, use_kernel):
+    """Same graph, features, weights, cache and requests: the same sampled
+    blocks, every counter of the snapshot equal, logits within 1e-5."""
+    from repro.graph import sampler as j_sampler
+    from repro_torch.graph import sampler as t_sampler
+
+    (jg, jcfg, jp), (tg, tcfg, tp), feats = gnn_setup()
+    sampled = {"jax": [], "port": []}
+    for key, mod in (("jax", j_sampler), ("port", t_sampler)):
+        def recording(*args, _orig=mod.sample_blocks, _out=sampled[key]):
+            _out.append(_orig(*args))
+            return _out[-1]
+        monkeypatch.setattr(mod, "sample_blocks", recording)
+    cache = dict(budget_bytes=96 * 8 * 4, hot_fraction=hot_fraction, policy=policy,
+                 use_kernel=use_kernel)
+    kw = dict(fanout=(4, 3), seeds_per_req=3, service_model=lambda n: 1e-3, seed=5)
+    je = j_engine.GNNServeEngine(jp, jcfg, jg, feats, j_cache.CacheConfig(**cache, tile_e=128),
+                                 j_sched.SchedulerConfig(max_batch=4, max_queue=32),
+                                 clock=j_sched.VirtualClock(), **kw)
+    te = t_engine.GNNServeEngine(tp, tcfg, tg, feats, t_cache.CacheConfig(**cache),
+                                 SchedulerConfig(max_batch=4, max_queue=32),
+                                 clock=VirtualClock(), device="cpu", **kw)
+    rng = np.random.default_rng(2)
+    seeds = [rng.integers(0, jg.num_nodes, 3) for _ in range(11)]   # 4 + 4 + 3 (padded)
+    j_reqs = [je.submit({"seeds": s}) for s in seeds]
+    t_reqs = [te.submit({"seeds": s}) for s in seeds]
+    je.run_until_idle()
+    te.run_until_idle()
+    assert all(r.status == "done" for r in t_reqs)
+    for jr, tr in zip(j_reqs, t_reqs):
+        assert tr.result.shape == (3, tcfg.d_out)
+        np.testing.assert_allclose(tr.result, jr.result, rtol=1e-5, atol=1e-5)
+    assert len(sampled["port"]) == len(sampled["jax"]) == 3
+    for jb, tb in zip(sampled["jax"], sampled["port"]):
+        for f in dataclasses.fields(jb):
+            np.testing.assert_array_equal(getattr(tb, f.name), getattr(jb, f.name))
+    assert te.metrics.snapshot() == je.metrics.snapshot()
+    assert te.metrics.counters["batches"] == 3
+    assert (te.cache.hot_size, te.cache.cold_slots) == (je.cache.hot_size, je.cache.cold_slots)
+    assert_same_state(je.cache, te.cache)
+
+
+def test_gnn_engine_caps_the_pinned_region_at_hot_vertices():
+    """degree = the graph's out-degree: a budget that could pin every row
+    pins only the hot vertices (out-degree >= average), as the JAX engine."""
+    (jg, jcfg, jp), (tg, tcfg, tp), feats = gnn_setup()
+    budget = jg.num_nodes * 8 * 4
+    je = j_engine.GNNServeEngine(jp, jcfg, jg, feats,
+                                 j_cache.CacheConfig(budget_bytes=budget, hot_fraction=1.0,
+                                                     tile_e=128), j_sched.SchedulerConfig())
+    te = t_engine.GNNServeEngine(tp, tcfg, tg, feats,
+                                 t_cache.CacheConfig(budget_bytes=budget, hot_fraction=1.0),
+                                 SchedulerConfig(), device="cpu")
+    hot = int((tg.out_degree >= tg.out_degree.mean()).sum())
+    assert te.cache.hot_size == je.cache.hot_size == hot < tg.num_nodes
+
+
 def test_launch_serve_cli_recsys(tmp_path):
     from repro.launch import serve as j_cli
     from repro_torch.launch import serve as t_cli
