@@ -66,7 +66,21 @@ Phases, each of which must pass:
      1e-5), K1 on that batch's hot ids is its plain version bit for bit and
      runs once per batch under GRASP (never unpinned); it prints requests/s,
      e2e p50/p99, the hit rates, the per-batch split (sampling and cache
-     lookup on the host, the forward on the card) and peak device memory.
+     lookup on the host, the forward on the card) and peak device memory;
+ 11. training, which launches no kernel (K1's, K2's and K3's counts stay
+     0), run after the kernels' timing: (a) one AdamW step of each GNN
+     (GIN, PNA, EGNN, NequIP) at full width on the molecule shape, on the
+     card against the CPU (the loss, every gradient leaf against its
+     scale, AdamW against the CPU's of the same gradients; the step is
+     value_and_grad and AdamW bit for bit); (b) MIND at full width at
+     train_batch: the loss and every gradient on 4,096 rows against the
+     CPU, Trainer.fit for 10 steps (finite losses; ms a step, host ms to
+     draw a batch, the copy to the card, the device's busy share, peak
+     memory), 20 steps on one batch (the loss falls); (c) GIN on
+     minibatch_lg blocks of the ``lj`` graph, 12 steps clean and with
+     checkpoints every 4 and failures at 5 and 9: two restarts, and the
+     same losses and final state bit for bit under deterministic
+     algorithms.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
@@ -112,6 +126,20 @@ GNN_SEEDS_PER_REQ = 4
 GNN_MAX_BATCH = 256
 GNN_FANOUT = (15, 10)
 GNN_CACHE_BYTES = 256 << 20
+# training (phase 11): MIND's card-vs-CPU check on the first rows of one
+# train_batch, its fit lengths; GIN's fit with checkpoints and failures
+TRAIN_MIND_CHECK_ROWS = 4096
+TRAIN_MIND_STEPS = 10
+TRAIN_MIND_FIXED_STEPS = 20
+TRAIN_GIN_STEPS = 12
+TRAIN_GIN_CKPT_EVERY = 4
+TRAIN_GIN_FAIL_AT = (5, 9)
+# card against CPU: the loss and AdamW at tests/test_torch_gnn.py's
+# tolerances (MIND's 1e-5); each gradient leaf's max abs difference within
+# TRAIN_GRAD_SCALE of the leaf's largest entry (check_gnn_train_steps says
+# why; NequIP's is tests/test_torch_gnn.py's bound against the JAX package)
+TRAIN_TOL = {"gin": 1e-5, "pna": 5e-5, "egnn": 5e-5, "nequip": 2e-3, "mind": 1e-5}
+TRAIN_GRAD_SCALE = {"gin": 1e-5, "pna": 5e-3, "egnn": 5e-5, "nequip": 2.0 ** -5, "mind": 1e-5}
 
 
 def card_line() -> str:
@@ -1338,6 +1366,401 @@ def run_real_suite(dev, g2) -> int:
     return prd_launches.pop()
 
 
+class TrainProbe:
+    """Times a ``Trainer``'s loop on the card: host ms to draw each batch
+    (``batch_fn``), ms of each copy to the card and of each step, each
+    ending in a synchronisation (the trainer's ``to_device`` and ``step``,
+    wrapped on the instance)."""
+
+    def __init__(self, trainer, batch_fn):
+        import torch
+
+        self.draw_ms, self.copy_ms, self.step_ms = [], [], []
+        to_device, step = trainer.to_device, trainer.step
+
+        def timed(fn, out):
+            def run(*args):
+                t0 = time.perf_counter()
+                res = fn(*args)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+                return res
+            return run
+
+        self.batch_fn = timed(batch_fn, self.draw_ms)
+        trainer.to_device, trainer.step = timed(to_device, self.copy_ms), timed(step,
+                                                                                  self.step_ms)
+
+
+def tree_errors(got, want) -> list[float]:
+    """Max abs difference of each leaf of ``got`` (on the card) from ``want``."""
+    from repro_torch.train.tree import tree_leaves
+
+    return [float((g.cpu().float() - w.float()).abs().max()) for g, w in
+            zip(tree_leaves(got), tree_leaves(want))]
+
+
+def within(got, want, tol: float) -> bool:
+    """Every leaf of ``got`` within rtol = atol = ``tol`` of ``want``'s."""
+    import torch
+
+    from repro_torch.train.tree import tree_leaves
+
+    return all(torch.allclose(g.cpu(), w, rtol=tol, atol=tol)
+               for g, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def leaf_relative(errors: list[float], want) -> list[float]:
+    """Each leaf's max abs error over the leaf's largest entry (0 for a leaf
+    of zeros that is matched exactly)."""
+    from repro_torch.train.tree import tree_leaves
+
+    scale = [float(w.abs().max()) if w.numel() else 0.0 for w in tree_leaves(want)]
+    return [e / s if s else (0.0 if e == 0 else float("inf")) for e, s in zip(errors, scale)]
+
+
+def deterministic(fn):
+    """(``fn()`` under torch.use_deterministic_algorithms, None), or, where
+    an op of ``fn`` refuses that mode, (``fn()`` without it, the op's
+    message)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn(), None
+    except RuntimeError as e:
+        if "deterministic" not in str(e):
+            raise
+        refused = str(e).splitlines()[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"an op refuses deterministic mode, run without it: {refused}")
+    return fn(), refused
+
+
+def check_gnn_train_steps(dev) -> None:
+    """Phase 11 (a): one AdamW step (launch/steps.gnn_train_step) of each
+    GNN kind at its published width on the molecule shape, on the card
+    against the CPU; GIN and PNA get labels in [0, d_out).
+
+    - The loss within the tolerance of tests/test_torch_gnn.py (TRAIN_TOL).
+    - Each gradient leaf within TRAIN_GRAD_SCALE of its largest entry. A
+      gradient is only as stable as its inputs let it be: the run prints
+      how far the CPU's own gradients move when x and the coordinates are
+      perturbed by 1e-7 relative (an ulp), which the card's other rounding
+      is. GIN and EGNN move by ~1e-6 of the leaf, PNA by ~1e-3
+      (near-ties of its segment max and min change hands, and its std,
+      sqrt(var + 1e-5) over a cancelling variance, amplifies an ulp), so
+      PNA's bound is 5e-3. NequIP's gradients run through bfloat16
+      products and features, so an input that rounds the other way moves a
+      gradient by a bfloat16 ulp times its cotangent: 2^-5, as
+      tests/test_torch_gnn.py holds it against the JAX package.
+    - The new parameters: the card's step is value_and_grad and AdamW bit
+      for bit (under deterministic algorithms), and AdamW on the card gives
+      the CPU's AdamW of the same gradients within the tolerance. Against
+      the CPU's whole step they are printed, not held: AdamW's first step
+      is g / (|g| + eps) an entry, so where a gradient entry is at the
+      atomic sums' noise the two updates differ by up to 2 lr.
+
+    EGNN's phi_x output layers are scaled by 1e-2, as in the card tests:
+    at random full-width weights its coordinates leave float32's range and
+    the loss is inf, in the JAX package too."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import GNN_SHAPES, get_arch
+    from repro_torch.data.pipeline import gnn_molecule_batch
+    from repro_torch.launch.steps import gnn_loss, gnn_train_step
+    from repro_torch.nn import gnn
+    from repro_torch.train.optimizer import OptConfig, make
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.train.tree import tree_leaves
+
+    shape, cpu = GNN_SHAPES["molecule"], torch.device("cpu")
+    opt_update = make(OptConfig(name="adamw", lr=1e-3))[1]
+    failed = []
+    for arch in ("gin-tu", "pna", "egnn", "nequip"):
+        cfg = get_arch(arch)
+        tol = TRAIN_TOL[cfg.kind]
+        rng = np.random.default_rng(11)
+        batch = gnn_molecule_batch(rng, shape)
+        if cfg.kind in ("gin", "pna"):
+            batch["labels"] = rng.integers(0, cfg.d_out, shape.batch_graphs).astype(np.int32)
+        params = gnn.init(torch.Generator().manual_seed(0), cfg, shape.d_feat, device="cpu")
+        if cfg.kind == "egnn":
+            for layer in params["layers"]:
+                layer["phi_x"][-1]["w"] *= 1e-2
+
+        def run(d):
+            p = gnn.to_device(params, d)
+            opt_init, step = gnn_train_step(cfg, shape, device=d)
+            state = opt_init(p)
+            new_params, _, metrics = step(p, state, batch)
+            return metrics["loss"], value_and_grad(gnn_loss, p, cfg, batch)[1], new_params, state
+
+        loss_c, grads_c, new_c, state_c = run(cpu)
+        (loss_d, grads_d, new_d, state_d), refused = deterministic(lambda: run(dev))
+        grad_rel = leaf_relative(tree_errors(grads_d, grads_c), grads_c)
+        param_err = tree_errors(new_d, new_c)
+        noise = 0.0
+        for seed in range(3):  # the CPU's own gradients under an ulp of input noise
+            r = np.random.default_rng(100 + seed)
+            nudged = {k: (batch[k] * (1 + 1e-7 * r.standard_normal(batch[k].shape))).astype(
+                np.float32) if k in ("x", "coords") else v for k, v in batch.items()}
+            g = value_and_grad(gnn_loss, gnn.to_device(params, cpu), cfg, nudged)[1]
+            noise = max(noise, max(leaf_relative(tree_errors(g, grads_c), grads_c)))
+        adamw_cpu = opt_update(gnn.to_device(grads_d, cpu), state_c, gnn.to_device(params, cpu))[0]
+        adamw_err = tree_errors(new_d, adamw_cpu)
+        composed = refused is not None or all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(new_d), tree_leaves(opt_update(grads_d, state_d,
+                                                       gnn.to_device(params, dev))[0])))
+        src, dst, em = batch["src"], batch["dst"], batch["emask"]
+        pairs = src.astype(np.int64) * len(src) + dst
+        dups = int(em.sum()) - len(np.unique(pairs[em]))
+        finite = bool(torch.isfinite(loss_d)) and all(
+            bool(torch.isfinite(g).all()) for g in tree_leaves(grads_d))
+        print(f"train step {arch} at molecule ({shape.batch_graphs} x {shape.n_nodes} nodes, "
+              f"{dups} duplicate edges): loss card {float(loss_d):.6f} CPU {float(loss_c):.6f} "
+              f"(diff {abs(float(loss_d) - float(loss_c)):.3e}); gradients: largest max abs diff "
+              f"over the leaf's largest entry {max(grad_rel):.3e} (bound "
+              f"{TRAIN_GRAD_SCALE[cfg.kind]:.3e}; the CPU's own under 1e-7 relative input noise "
+              f"{noise:.3e}); AdamW on the card vs "
+              f"the CPU's of the card's gradients {max(adamw_err):.3e}; new parameters vs the "
+              f"CPU's step {max(param_err):.3e} (not held); tolerance {tol}")
+        grads_ok = max(grad_rel) <= TRAIN_GRAD_SCALE[cfg.kind]
+        if not finite:
+            failed.append(f"{arch}: the loss or a gradient is not finite")
+        if not composed:
+            failed.append(f"{arch}: the step is not value_and_grad and AdamW on the card")
+        if not (torch.allclose(loss_d.cpu(), loss_c, rtol=tol, atol=tol) and grads_ok
+                and within(new_d, adamw_cpu, tol)):
+            failed.append(f"{arch}: the card differs from the CPU")
+    if failed:
+        fail("train steps: " + "; ".join(failed))
+
+
+def profile_busy(fn) -> tuple[float, float]:
+    """(device busy ms, host wall ms) of ``fn`` under torch.profiler, the
+    window padded by ``spin_pad``; busy is the self device time of every
+    kernel but the spin kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        spin_pad()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        spin_pad()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.key) / 1e3
+    return busy, wall
+
+
+def train_mind(dev, params) -> None:
+    """Phase 11 (b): MIND at its published width (the dense 2^21 x 64 f32
+    table of ``params``) at train_batch. First the loss and every gradient
+    on the first rows of one batch, card against CPU; then Trainer.fit for
+    TRAIN_MIND_STEPS steps (a finite loss at each) with the loop's split
+    timed; the device's busy share over a short fit under the profiler; then
+    TRAIN_MIND_FIXED_STEPS steps on one fixed batch, where the loss must
+    fall."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import RECSYS_SHAPES, get_arch
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.nn import recsys
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig, value_and_grad
+    from repro_torch.train.tree import tree_leaves
+
+    cfg, shape = get_arch("mind"), RECSYS_SHAPES["train_batch"]
+    batch_fn = make_batch_fn("recsys", cfg, shape, seed=0)
+    batch0 = batch_fn(0)
+    rows = TRAIN_MIND_CHECK_ROWS
+    small = {k: (v if k == "negatives" else v[:rows]) for k, v in batch0.items()}
+    on_cpu = value_and_grad(recsys.loss_fn, recsys.to_device(params, torch.device("cpu")),
+                            cfg, small)
+    on_card = value_and_grad(recsys.loss_fn, params, cfg, small)
+    loss_err = abs(float(on_card[0]) - float(on_cpu[0]))
+    grad_err = tree_errors(on_card[1], on_cpu[1])
+    grad_rel = leaf_relative(grad_err, on_cpu[1])
+    print(f"MIND train check on {rows} rows of train_batch ({cfg.n_negatives} negatives): loss "
+          f"card {float(on_card[0]):.7f} CPU {float(on_cpu[0]):.7f} (diff {loss_err:.3e}); "
+          f"gradients max abs diff {max(grad_err):.3e} (items {grad_err[0]:.3e}), largest over "
+          f"its leaf's largest entry {max(grad_rel):.3e} (items {grad_rel[0]:.3e}); tolerance "
+          f"{TRAIN_TOL['mind']}, gradients {TRAIN_GRAD_SCALE['mind']} of the leaf")
+    if not (torch.allclose(on_card[0].cpu(), on_cpu[0], rtol=TRAIN_TOL["mind"],
+                           atol=TRAIN_TOL["mind"])
+            and max(grad_rel) <= TRAIN_GRAD_SCALE["mind"]):
+        fail("MIND train check: the card differs from the CPU")
+    del on_cpu, on_card
+
+    opt = OptConfig(name="adamw", lr=1e-3)
+
+    def loss_fn(p, b):
+        return recsys.loss_fn(p, cfg, b)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = Trainer(loss_fn, lambda: params, opt,
+                      TrainerConfig(num_steps=TRAIN_MIND_STEPS, log_every=1), device=dev)
+    probe = TrainProbe(trainer, batch_fn)
+    t0 = time.perf_counter()
+    state = trainer.fit(probe.batch_fn)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in trainer.history]
+    if len(losses) != TRAIN_MIND_STEPS or not np.isfinite(losses).all():
+        fail(f"MIND training: losses {losses}")
+    del state
+    step_ms = statistics.median(probe.step_ms[1:])
+    short = Trainer(loss_fn, lambda: params, opt, TrainerConfig(num_steps=3, log_every=3),
+                    device=dev)
+    busy, fit_wall = profile_busy(lambda: short.fit(batch_fn))
+    print(f"MIND training at train_batch ({shape.batch} x {cfg.hist_len} histories, "
+          f"{cfg.n_negatives} shared negatives, table {cfg.n_items} x {cfg.embed_dim} f32, dense "
+          f"gradient): {TRAIN_MIND_STEPS} steps in {wall:.1f} s; per step median ms (steps 2 on, "
+          f"synchronised): step {step_ms:.3f}, batch draw (host) "
+          f"{statistics.median(probe.draw_ms):.3f}, copy to the card "
+          f"{statistics.median(probe.copy_ms):.3f}; first step {probe.step_ms[0]:.3f}; a 3-step "
+          f"fit under the profiler: device busy {busy:.3f} ms of {fit_wall:.3f} ms (busy share "
+          f"{busy / fit_wall:.4f}; {busy / 3:.3f} ms a step, {busy / 3 / step_ms:.4f} of a "
+          f"step's time); peak device memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} "
+          f"GiB above the earlier phases' tensors)")
+
+    fixed = Trainer(loss_fn, lambda: params, opt,
+                    TrainerConfig(num_steps=TRAIN_MIND_FIXED_STEPS, log_every=5), device=dev)
+    fixed.fit(lambda step: batch0)
+    first, last = fixed.history[0]["loss"], fixed.history[-1]["loss"]
+    print(f"MIND on one fixed batch: loss {first:.6f} at step 1, {last:.6f} at step "
+          f"{fixed.history[-1]['step']}")
+    if not last < first:
+        fail(f"MIND training: the loss on one fixed batch did not fall ({first} -> {last})")
+
+
+def train_gin(dev, g2) -> None:
+    """Phase 11 (c): GIN (gin-tu at its published width) on minibatch_lg
+    block graphs sampled from ``g2`` (the ``lj`` graph of phase 5), labels
+    in [0, d_out). A clean Trainer.fit of TRAIN_GIN_STEPS steps, timed;
+    then the same with checkpoints every TRAIN_GIN_CKPT_EVERY steps and
+    failures injected at TRAIN_GIN_FAIL_AT: it restarts once per failure,
+    and its loss history and final state equal the clean run's bit for bit
+    under torch.use_deterministic_algorithms (to rtol 1e-6, naming the op,
+    if an op of the path refuses that mode)."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import GNN_SHAPES, get_arch
+    from repro_torch.data.pipeline import gnn_minibatch
+    from repro_torch.launch.steps import gnn_loss
+    from repro_torch.nn import gnn
+    from repro_torch.train.ft import FailureInjector
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.tree import tree_leaves
+
+    cfg, shape = get_arch("gin-tu"), GNN_SHAPES["minibatch_lg"]
+
+    def batch_fn(step):
+        # the default 47 classes against 16 logits would give a NaN loss,
+        # as in the JAX package: labels in [0, d_out) here
+        return gnn_minibatch(np.random.default_rng((0, step)), g2, shape, shape.d_feat,
+                             n_classes=cfg.d_out)
+
+    def trainer(**ckpt):
+        return Trainer(lambda p, b: gnn_loss(p, cfg, b),
+                       lambda: gnn.init(torch.Generator().manual_seed(0), cfg, shape.d_feat,
+                                        device=dev),
+                       OptConfig(name="adamw", lr=1e-3),
+                       TrainerConfig(num_steps=TRAIN_GIN_STEPS, log_every=1, **ckpt),
+                       device=dev)
+
+    def runs():
+        clean = trainer()
+        probe = TrainProbe(clean, batch_fn)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        clean_state = clean.fit(probe.batch_fn)
+        peak = torch.cuda.max_memory_allocated(dev)
+        scratch = os.path.join(ROOT, "build")
+        os.makedirs(scratch, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=scratch) as d:
+            faulty = trainer(ckpt_dir=d, ckpt_every=TRAIN_GIN_CKPT_EVERY)
+            state = faulty.fit(batch_fn, injector=FailureInjector(fail_at=TRAIN_GIN_FAIL_AT))
+        return clean, clean_state, faulty, state, probe, peak - base, peak
+
+    (clean, clean_state, faulty, state, probe, above, peak), refused = deterministic(runs)
+
+    b = batch_fn(0)
+    print(f"GIN training at minibatch_lg ({shape.batch_nodes} seeds, fanout {shape.fanout}, "
+          f"d_feat {shape.d_feat}) over the lj graph of phase 5: {b['x'].shape[0]} nodes and "
+          f"{b['src'].shape[0]} edges a block ({int(b['emask'].sum())} valid); per step median "
+          f"ms (steps 2 on, synchronised): step {statistics.median(probe.step_ms[1:]):.3f}, "
+          f"batch draw (host) {statistics.median(probe.draw_ms):.3f}, copy to the card "
+          f"{statistics.median(probe.copy_ms):.3f}; peak device memory {peak / 2**30:.3f} GiB "
+          f"({above / 2**30:.3f} GiB above the earlier phases' tensors); deterministic "
+          f"{'no' if refused else 'yes'}")
+    losses = [h["loss"] for h in clean.history]
+    if len(losses) != TRAIN_GIN_STEPS or not np.isfinite(losses).all():
+        fail(f"GIN training: losses {losses}")
+    replayed = {h["step"]: h for h in faulty.history}
+    print(f"GIN restarts: {faulty.restarts} (failures at steps {TRAIN_GIN_FAIL_AT}, checkpoints "
+          f"every {TRAIN_GIN_CKPT_EVERY}); {len(faulty.history)} steps run for "
+          f"{TRAIN_GIN_STEPS}; loss {losses[0]:.6f} at step 1, {losses[-1]:.6f} at step "
+          f"{TRAIN_GIN_STEPS}")
+    if faulty.restarts != len(TRAIN_GIN_FAIL_AT):
+        fail(f"GIN training: {faulty.restarts} restarts for {len(TRAIN_GIN_FAIL_AT)} failures")
+    if sorted(replayed) != list(range(1, TRAIN_GIN_STEPS + 1)):
+        fail(f"GIN training: the restarted run logged steps {sorted(replayed)}")
+    pairs = list(zip(tree_leaves(state), tree_leaves(clean_state)))
+    if refused is None:
+        same = all(torch.equal(a, b) for a, b in pairs) and all(
+            replayed[h["step"]] == h for h in clean.history) and all(
+            h == replayed[h["step"]] for h in faulty.history)
+        how = "bit for bit"
+    else:
+        same = all(torch.allclose(a, b, rtol=1e-6, atol=0) for a, b in pairs) and np.allclose(
+            [replayed[h["step"]]["loss"] for h in clean.history], losses, rtol=1e-6, atol=0)
+        how = "to rtol 1e-6"
+    print(f"GIN restarted run against the clean run ({how}): "
+          f"{'the same' if same else 'DIFFERENT'} loss history and final state "
+          f"(max abs diff {max(float((a - b).abs().max()) for a, b in pairs):.3e})")
+    if not same:
+        fail("GIN training: the restarted run differs from the clean run")
+
+
+def run_training(dev, params, g2) -> None:
+    """Phase 11: training, which launches no kernel of the port (the JAX
+    package's train steps read the table with impl="jnp", and no
+    pallas_call there has a backward): K1's, K2's and K3's launch counts are
+    0 at its start and still 0 at its end."""
+    from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
+    from repro_torch.kernels.hot_gather.hot_gather import (hot_gather_hot_part,
+                                                           hot_gather_segment_sum)
+
+    counters = (hot_gather_hot_part, hot_gather_segment_sum, hot_bag_hot_part)
+    for c in counters:
+        c.launches = 0
+    phase("11a (GNN train steps, card vs CPU)", check_gnn_train_steps, dev)
+    phase("11b (MIND training)", train_mind, dev, params)
+    phase("11c (GIN training with restarts)", train_gin, dev, g2)
+    launched = {c.__name__: c.launches for c in counters}
+    print(f"training: kernel launches {launched}")
+    if any(launched.values()):
+        fail(f"training launched a kernel: {launched}")
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -1356,6 +1779,9 @@ def main() -> int:
     from repro_torch.kernels import _build  # noqa: F401
 
     t_start = time.perf_counter()
+    # cuBLAS's deterministic workspace, for phase 11's restart check under
+    # torch.use_deterministic_algorithms (read before the first product)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card)
@@ -1428,6 +1854,9 @@ def main() -> int:
     ]
     if any(k["launches"] < 1 for k in kernels):
         fail("a kernel's path did not launch it")
+    # training runs after the kernels' timing: after its profiled fit,
+    # torch.profiler on the card lost 2 of every 20 kernels in each window
+    phase("11 (training)", run_training, dev, params, real_graph)
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

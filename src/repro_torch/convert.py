@@ -1,5 +1,6 @@
 """Carry the reference's state across: the graph, the plan and the trace
-of the graph pipeline, MIND's parameters and the GNNs' parameters. Each
+of the graph pipeline, MIND's parameters, the GNNs' parameters and the
+optimizers' state. Each
 function takes the JAX package's numpy fields (or any arrays of the same
 values) and returns the port's object, with the dtypes the port's code
 expects."""
@@ -15,7 +16,7 @@ from repro_torch import devices
 from repro_torch.core.cachesim import Trace
 from repro_torch.core.plan import GraspPlan
 from repro_torch.graph.csr import CSR
-from repro_torch.nn import gnn
+from repro_torch.train.tree import tree_map
 
 
 def csr_from_numpy(indptr, indices, num_nodes: int,
@@ -75,4 +76,23 @@ def gnn_params_from_numpy(params, device: str | torch.device = devices.DEFAULT_D
     with its array's dtype; ``None`` entries (GIN's ``eps`` when it is not
     learnable, NequIP's ``r02``/``r22`` when ``l_max < 2``) stay ``None``."""
     dev = devices.resolve(device)
-    return gnn.tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), params)
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), params)
+
+
+def _tensor_of(a, dev: torch.device) -> torch.Tensor:
+    """A tensor of ``a``'s dtype; bfloat16 arrays (numpy's extension dtype,
+    which torch does not read) go across as their 16-bit patterns."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+    return torch.tensor(a, device=dev)
+
+
+def opt_state_from_numpy(state, device: str | torch.device = devices.DEFAULT_DEVICE):
+    """An optimizer state of the JAX package's ``train.optimizer`` (SGD's
+    ``mu``, AdamW's ``m``/``v``, Adafactor's ``vr``/``vc``/``v`` trees and
+    the int32 ``step``) as numpy arrays -> the port's state, the same tree
+    of tensors on ``device`` with each array's dtype (bfloat16 moments
+    included); ``None`` entries stay ``None``."""
+    dev = devices.resolve(device)
+    return tree_map(lambda a: _tensor_of(a, dev), state)

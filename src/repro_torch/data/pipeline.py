@@ -4,11 +4,16 @@ Recsys item ids are Zipf-distributed: the skew GRASP exploits. GNN batches
 come from RMAT graphs (a full graph), random small molecules, or the
 fanout sampler (a minibatch). The same ``numpy.random.Generator`` state
 gives the same arrays as the JAX package's pipeline, so both packages can
-be fed one stream.
+be fed one stream. The streams (``batches``, ``make_batch_fn``) seed each
+step with ``(seed, step)``, so fault-tolerant restarts replay; the
+``Prefetcher`` draws them on a background thread (double buffering). The
+``"lm"`` kind waits for the LM configs.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import queue
+import threading
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 
@@ -104,3 +109,56 @@ def gnn_minibatch(rng: np.random.Generator, g, shape: GNNShape, d_feat: int,
         "coords": rng.standard_normal((blocks.n_sub, 3)).astype(np.float32),
         "species": rng.integers(0, 8, blocks.n_sub).astype(np.int32),
     }
+
+
+class Prefetcher:
+    """Background-thread double buffering around a batch function."""
+
+    def __init__(self, make_batch: Callable[[int], Dict], depth: int = 2):
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._make = make_batch
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        step = 0
+        while not self._stop.is_set():
+            try:
+                self._q.put(self._make(step), timeout=0.5)
+                step += 1
+            except queue.Full:
+                continue
+
+    def __next__(self):
+        return self._q.get()
+
+    def __iter__(self) -> Iterator[Dict]:
+        return self
+
+    def close(self):
+        self._stop.set()
+
+
+def _batch(kind: str, rng: np.random.Generator, cfg, shape) -> Dict:
+    if kind == "recsys":
+        return recsys_batch(rng, cfg, shape)
+    if kind == "lm":
+        raise NotImplementedError("lm batches join with the LM configs")
+    raise ValueError(kind)
+
+
+def batches(kind: str, cfg, shape, seed: int = 0) -> Iterator[Dict]:
+    """Deterministic batch stream (seeded per step — FT restarts replay)."""
+    step = 0
+    while True:
+        yield _batch(kind, np.random.default_rng((seed, step)), cfg, shape)
+        step += 1
+
+
+def make_batch_fn(kind: str, cfg, shape, seed: int = 0) -> Callable[[int], Dict]:
+    """Deterministic step->batch function (FT restarts replay bit-exact)."""
+    def fn(step: int) -> Dict:
+        return _batch(kind, np.random.default_rng((seed, step)), cfg, shape)
+
+    return fn

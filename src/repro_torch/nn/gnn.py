@@ -36,15 +36,7 @@ import torch.nn.functional as F
 from repro_torch import devices
 from repro_torch.configs.base import GNNConfig
 from repro_torch.nn import layers as L
-
-
-def tree_map(fn, tree):
-    """``fn`` on every tensor of a parameter tree; ``None`` stays ``None``."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return None if tree is None else fn(tree)
+from repro_torch.train.tree import tree_map
 
 
 def to_device(params, device: torch.device):
@@ -86,15 +78,30 @@ def _seg_extreme(x: torch.Tensor, dst: torch.Tensor, n: int, reduce: str) -> tor
     return torch.where(torch.isfinite(out), out, 0.0)
 
 
+class _Sigmoid(torch.autograd.Function):
+    """``jax.nn.sigmoid`` (``lax.logistic``) as the JAX package computes it
+    on the CPU, value and gradient. The value: in float32 as
+    ``torch.sigmoid`` (to an ulp); in bfloat16 as ``1 / (1 + exp(-x))``
+    with every step rounded to bfloat16, the form XLA expands it to there
+    (``torch.sigmoid`` rounds once and differs in a third of the values).
+    The gradient: ``g * (s * (1 - s))`` in the value's dtype, ``lax.logistic``'s
+    own rule (torch's rounds as ``g * (1 - s) * s``, which in bfloat16
+    moves NequIP's gradients by percents)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x)) if x.dtype == torch.bfloat16 else torch.sigmoid(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.sigmoid`` as the JAX package computes it on the CPU: in
-    float32 as ``torch.sigmoid`` (to an ulp); in bfloat16 as
-    ``1 / (1 + exp(-x))`` with every step rounded to bfloat16, the form
-    XLA expands it to there (``torch.sigmoid`` rounds once and differs in
-    a third of the values)."""
-    if x.dtype == torch.bfloat16:
-        return 1 / (1 + torch.exp(-x))
-    return torch.sigmoid(x)
+    return _Sigmoid.apply(x)
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:

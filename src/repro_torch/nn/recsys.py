@@ -1,11 +1,9 @@
-"""MIND: Multi-Interest Network with Dynamic routing (Li et al., CIKM'19),
-the serving functions.
+"""MIND: Multi-Interest Network with Dynamic routing (Li et al., CIKM'19).
 
 Pipeline: item-embedding lookup over the user's behaviour history, capsule
-dynamic routing into ``n_interests`` interest capsules, and candidate
-scoring against the interests with a max-over-interests reduction. The
-training functions (label-aware attention, sampled-softmax loss) join with
-the training slice.
+dynamic routing into ``n_interests`` interest capsules, label-aware
+attention and a sampled-softmax loss for training; serving scores
+candidates against the interests with a max-over-interests reduction.
 
 GRASP tie-in: item popularity is Zipfian — with the table rows ordered by
 popularity (the recsys analogue of DBG reordering), the leading rows form
@@ -16,6 +14,12 @@ hint; ``init(..., hot_rows=...)`` splits the table at the same boundary.
 Parameters are a plain dict of tensors (``s_mat``, ``mlp[i]["w"]`` and
 ``items``, or ``items_hot`` + ``items_cold``); the functions compute on the
 device the parameters lie on. Batches may hold numpy arrays or tensors.
+
+Training differentiates the plain route only (``impl="plain"``, the JAX
+package's ``impl="jnp"``): the table's gradient is dense, as
+``jax.value_and_grad`` gives it. K1's launch has no backward (nor has the
+JAX package's ``pallas_call``), so ``user_interests`` and ``loss_fn`` raise
+on ``impl="hot"`` while autograd would record a table that requires grad.
 
 Routing logits are ``sin(id * (1 + k))`` in float32, as in the JAX
 package. The products are exact in float32 (ids < 2^21, k < 4), but the
@@ -139,6 +143,11 @@ def user_interests(params: Dict, cfg: RecsysConfig, hist, hist_mask,
     derived from item ids (deterministic, matches MIND's B2I)."""
     dev = _device_of(params)
     hist, hist_mask = _as_tensor(hist, dev), _as_tensor(hist_mask, dev)
+    if impl != "plain" and torch.is_grad_enabled() and any(
+            params[k].requires_grad for k in ("items", "items_hot", "items_cold") if k in params):
+        raise RuntimeError(
+            f"impl={impl!r} reads the item table through a kernel with no backward; "
+            "train with impl='plain', or run under torch.no_grad()")
     if impl == "plain":
         e = table_lookup(params, hist)                              # (B, H, d)
     else:
@@ -180,6 +189,34 @@ def score_candidates(interests: torch.Tensor, cand_emb: torch.Tensor) -> torch.T
     scores (MIND serving reduction)."""
     scores = torch.einsum("bkd,bcd->bkc", interests, cand_emb)
     return scores.amax(dim=1)
+
+
+def label_aware_attention(interests: torch.Tensor, target_emb: torch.Tensor,
+                          p: float = 2.0) -> torch.Tensor:
+    """MIND label-aware attention: the target (B, d) attends over the
+    interests (B, K, d) with a softmax of ``p`` x the dot products."""
+    scores = torch.einsum("bkd,bd->bk", interests, target_emb)
+    w = torch.softmax(scores * p, dim=-1)
+    return torch.einsum("bk,bkd->bd", w, interests)
+
+
+def loss_fn(params: Dict, cfg: RecsysConfig, batch: Dict, impl: str = "plain",
+            plan=None) -> torch.Tensor:
+    """Sampled softmax: target vs shared negatives.
+
+    batch: hist (B,H) int32, hist_mask (B,H) bool, target (B,) int32,
+           negatives (Neg,) int32.
+    """
+    dev = _device_of(params)
+    interests = user_interests(params, cfg, batch["hist"], batch["hist_mask"], impl, plan)
+    tgt = table_lookup(params, _as_tensor(batch["target"], dev))      # (B, d)
+    user = label_aware_attention(interests, tgt)                      # (B, d)
+    neg = table_lookup(params, _as_tensor(batch["negatives"], dev))   # (Neg, d)
+    pos_logit = torch.sum(user * tgt, dim=-1, keepdim=True)           # (B, 1)
+    neg_logit = user @ neg.T                                          # (B, Neg)
+    logits = torch.cat([pos_logit, neg_logit], dim=-1)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp[:, 0].mean()
 
 
 def serve_scores(params: Dict, cfg: RecsysConfig, batch: Dict, impl: str = "plain",

@@ -515,3 +515,87 @@ def test_gnn_models_on_card_match_cpu(cuda, arch):
         assert got.dtype == want.dtype and got.shape == want.shape
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mind", "gin-tu", "pna", "egnn", "nequip"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One AdamW train step (launch/steps.py) at the reduced config on the
+    card against the CPU: the loss and every new parameter and moment.
+    MIND at train shape (dense table), the GNNs at a small molecule batch
+    with labels in [0, d_out) for GIN and PNA; float32 within 1e-5 (the
+    card's atomic sums), NequIP within 2e-3 (its bfloat16 products)."""
+    from repro_torch.configs import base
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.nn import gnn, recsys
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = base.reduced(base.get_arch(arch))
+    rng = np.random.default_rng(5)
+    if arch == "mind":
+        batch = pipeline.recsys_batch(rng, cfg, base.RecsysShape("t", "train", 256))
+        params = recsys.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+        build, move = (lambda d: steps.recsys_train_step(cfg, device=d)), recsys.to_device
+    else:
+        shape = base.GNNShape("s", "molecule", 10, 20, d_feat=16, batch_graphs=8)
+        batch = pipeline.gnn_molecule_batch(rng, shape)
+        if cfg.kind in ("gin", "pna"):
+            batch["labels"] = rng.integers(0, cfg.d_out, 8).astype(np.int32)
+        params = gnn.init(torch.Generator().manual_seed(0), cfg, 16, device="cpu")
+        build, move = (lambda d: steps.gnn_train_step(cfg, shape, device=d)), gnn.to_device
+    out = {}
+    for d in (torch.device("cpu"), cuda):
+        opt_init, step = build(d)
+        p = move(params, d)
+        out[d.type] = step(p, opt_init(p), batch)
+    tol = 2e-3 if arch == "nequip" else 1e-5
+    (p_cpu, s_cpu, m_cpu), (p_card, s_card, m_card) = out["cpu"], out["cuda"]
+    assert torch.isfinite(m_card["loss"])
+    torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"], rtol=tol, atol=tol)
+    for got, want in zip(tree_leaves((p_card, s_card)), tree_leaves((p_cpu, s_cpu))):
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_trainer_restarts_on_card_bit_exact(cuda, tmp_path):
+    """Trainer.fit on the card with checkpoints and two injected failures
+    replays a clean run bit for bit under deterministic algorithms (GIN,
+    reduced, small molecule batches seeded per step)."""
+    import os
+
+    from repro_torch.configs import base
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.nn import gnn
+    from repro_torch.train import ft, optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.tree import tree_leaves
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = base.reduced(base.get_arch("gin-tu"))
+    shape = base.GNNShape("s", "molecule", 10, 20, d_feat=16, batch_graphs=8)
+
+    def batch_fn(step):
+        rng = np.random.default_rng((0, step))
+        return dict(pipeline.gnn_molecule_batch(rng, shape),
+                    labels=rng.integers(0, cfg.d_out, 8).astype(np.int32))
+
+    def fit(**kw):
+        tr = Trainer(lambda p, b: steps.gnn_loss(p, cfg, b),
+                     lambda: gnn.init(torch.Generator().manual_seed(0), cfg, 16, device=cuda),
+                     optimizer.OptConfig(name="adamw"),
+                     TrainerConfig(num_steps=8, log_every=1, **kw), device=cuda)
+        return tr, tr.fit(batch_fn, injector=ft.FailureInjector(fail_at=(3, 6)))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        clean, clean_state = fit()
+        faulty, state = fit(ckpt_dir=str(tmp_path), ckpt_every=2)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert faulty.restarts == 2
+    assert {h["step"]: h for h in faulty.history} == {h["step"]: h for h in clean.history}
+    for a, b in zip(tree_leaves(state), tree_leaves(clean_state)):
+        assert a.device.type == "cuda" and torch.equal(a, b)

@@ -32,15 +32,20 @@ from repro.configs import base as j_cfgs
 from repro.data import pipeline as j_pipe
 from repro.graph import generate as j_gen
 from repro.graph import sampler as j_sampler
+from repro.launch import steps as j_steps
 from repro.nn import gnn as j_gnn
 from repro.nn import layers as j_layers
+from repro.train import optimizer as j_opt
 from repro_torch import convert
 from repro_torch.configs import base as t_cfgs
 from repro_torch.data import pipeline as t_pipe
 from repro_torch.graph import generate as t_gen
 from repro_torch.graph import sampler as t_sampler
+from repro_torch.launch import steps as t_steps
 from repro_torch.nn import gnn as t_gnn
 from repro_torch.nn import layers as t_layers
+from repro_torch.train.trainer import value_and_grad
+from repro_torch.train.tree import tree_leaves
 
 ARCHS = ["gin-tu", "pna", "egnn", "nequip"]
 KINDS = ["full_graph", "molecule", "minibatch"]
@@ -387,3 +392,150 @@ def test_gnn_smoke_all_shapes(arch, kind):
     n_nodes = batch["x"].shape[0]
     assert out.shape == ((n_nodes,) if cfg.kind == "nequip" else (n_nodes, cfg.d_out))
     assert out.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# training: the cells' loss and its gradients against jax.value_and_grad
+# (launch/steps.py), and one composed AdamW step
+# ---------------------------------------------------------------------------
+
+
+def train_batch_pair(arch, kind, seed=0):
+    """Both packages' batch; GIN and PNA get molecule labels in [0, d_out),
+    as the JAX package's own smoke test draws them."""
+    jcfg, _ = cfg_pair(arch)
+    jb, tb = batch_pair(kind, seed=seed)
+    if kind == "molecule" and jcfg.kind in ("gin", "pna"):
+        labels = np.random.default_rng(seed + 100).integers(0, jcfg.d_out, 4).astype(np.int32)
+        jb, tb = dict(jb, labels=labels), dict(tb, labels=labels)
+    return jcfg, jb, tb
+
+
+# NequIP's gradients run back through its two bfloat16 products and the
+# bfloat16 features between its layers, in both packages: an input that
+# rounds to the neighbouring bfloat16 value in one package moves a weight
+# gradient by that ulp times its cotangent, whatever the gradient's own
+# size. They are held to 2^-5 (four bfloat16 ulps) of each leaf's largest
+# entry; the worst measured over 24 batches (the three kinds x 8 seeds,
+# reduced NequIP) was 1.69e-2 of it, on ``embed`` at the molecule batch.
+NEQUIP_GRAD_SCALE = 2.0 ** -5
+
+
+def assert_loss_and_grads(jcfg, jp, tp, jb, tb):
+    want_loss, want_grads = jax.value_and_grad(j_steps._gnn_loss)(
+        jp, jcfg, {k: jnp.asarray(v) for k, v in jb.items()})
+    loss, grads = value_and_grad(t_steps.gnn_loss, tp, jcfg, tb)
+    np.testing.assert_allclose(float(loss), float(want_loss), **TOL[jcfg.kind])
+    t_leaves, j_leaves = tree_leaves(grads), jax.tree_util.tree_leaves(want_grads)
+    assert len(t_leaves) == len(j_leaves)
+    for i, (t, j) in enumerate(zip(t_leaves, j_leaves)):
+        assert tuple(t.shape) == j.shape and t.dtype == torch.float32, i
+        j = np.asarray(j)
+        if jcfg.kind == "nequip":
+            bound = NEQUIP_GRAD_SCALE * np.abs(j).max()
+            assert np.abs(t.numpy() - j).max() <= bound, f"grad leaf {i}"
+        else:
+            np.testing.assert_allclose(t.numpy(), j, err_msg=f"grad leaf {i}", **TOL[jcfg.kind])
+    return float(loss), t_leaves
+
+
+@pytest.mark.parametrize("kind", ["molecule", "minibatch", "full_graph"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gnn_loss_and_every_gradient_match_jax(arch, kind):
+    """On the minibatch and full-graph batches GIN's and PNA's labels come
+    from 47 classes against 16 logits: both packages give a NaN loss (the
+    rows past the logits) and the same finite gradients."""
+    jcfg, jb, tb = train_batch_pair(arch, kind)
+    jp, tp = params_pair(jcfg)
+    loss, grads = assert_loss_and_grads(jcfg, jp, tp, jb, tb)
+    assert all(torch.isfinite(g).all() for g in grads)
+    out_of_range = jcfg.kind in ("gin", "pna") and kind != "molecule"
+    if out_of_range:
+        assert (tb["labels"] >= jcfg.d_out).any()
+    assert np.isnan(loss) == out_of_range
+    assert sum(float(g.abs().sum()) for g in grads) > 0
+
+
+def test_pna_ties_split_the_gradient_as_jax():
+    """Duplicate edges give equal messages, so segment max and min tie;
+    JAX averages the tangent over tied entries, torch's scatter_reduce
+    splits the gradient evenly: the same gradients."""
+    jcfg, _ = cfg_pair("pna")
+    jp, tp = params_pair(jcfg, d_feat=8)
+    rng = np.random.default_rng(9)
+    src = np.array([1, 1, 1, 2, 3, 3, 0, 0, 4, 4], np.int32)
+    dst = np.array([0, 0, 0, 0, 1, 1, 2, 2, 3, 3], np.int32)   # every edge doubled or tripled
+    batch = {"x": rng.standard_normal((6, 8)).astype(np.float32), "src": src, "dst": dst,
+             "emask": np.ones(10, bool), "labels": rng.integers(0, 16, 6).astype(np.int32)}
+    assert_loss_and_grads(jcfg, jp, tp, batch, batch)
+    # the scatter itself: [0, .5, .5, 1] in both
+    x = jnp.array([1.0, 3.0, 3.0, 2.0])
+    ids = jnp.array([0, 0, 0, 1])
+    want = jax.grad(lambda v: jax.ops.segment_max(v, ids, num_segments=2).sum())(x)
+    xt = torch.tensor([[1.0], [3.0], [3.0], [2.0]], requires_grad=True)
+    t_gnn._seg_extreme(xt, torch.tensor([0, 0, 0, 1]), 2, "amax").sum().backward()
+    np.testing.assert_array_equal(xt.grad.numpy()[:, 0], np.asarray(want))
+    np.testing.assert_array_equal(xt.grad.numpy()[:, 0], [0.0, 0.5, 0.5, 1.0])
+
+
+def test_take_along_last_matches_jax():
+    logp = np.log(np.arange(1, 7, dtype=np.float32) / 21).reshape(2, 3)
+    labels = np.array([-1, 5], np.int32)
+    want = jnp.take_along_axis(jnp.asarray(logp), jnp.asarray(labels)[..., None], axis=-1)[..., 0]
+    got = t_steps.take_along_last(torch.as_tensor(logp), torch.as_tensor(labels))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.isnan(got[1]) and float(got[0]) == logp[0, 2]
+    with pytest.raises(TypeError):
+        t_steps.take_along_last(torch.as_tensor(logp), torch.zeros(2))
+    assert t_steps.N_CLASSES == j_steps.N_CLASSES
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gnn_train_step_matches_the_jax_composition(arch):
+    """One AdamW (lr 1e-3) step as the JAX package's GNN train cell composes
+    it (value_and_grad of _gnn_loss, then opt_update), from a state two
+    steps in."""
+    jcfg, jb, tb = train_batch_pair(arch, "molecule")
+    jp, _ = params_pair(jcfg)
+    j_init, j_update = j_opt.make(j_opt.OptConfig(name="adamw", lr=1e-3))
+    js, jbatch = j_init(jp), {k: jnp.asarray(v) for k, v in jb.items()}
+    for _ in range(2):
+        _, g = jax.value_and_grad(j_steps._gnn_loss)(jp, jcfg, jbatch)
+        jp, js = j_update(g, js, jp)
+    tp = convert.gnn_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    ts = convert.opt_state_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
+    want_loss, g = jax.value_and_grad(j_steps._gnn_loss)(jp, jcfg, jbatch)
+    jp, js = j_update(g, js, jp)
+    _, step = t_steps.gnn_train_step(jcfg, t_cfgs.GNN_SHAPES["molecule"], device="cpu")
+    tp, ts, metrics = step(tp, ts, tb)
+    np.testing.assert_allclose(float(metrics["loss"]), float(want_loss), **TOL[jcfg.kind])
+    for t, j in zip(tree_leaves((tp, ts)), jax.tree_util.tree_leaves((jp, js))):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL[jcfg.kind])
+    assert int(ts["step"]) == 3
+
+
+def test_grasp_gin_cell_waits_for_dist():
+    gin = t_cfgs.get_arch("gin-tu")
+    with pytest.raises(NotImplementedError, match="dist"):
+        t_steps.gnn_train_step(gin, t_cfgs.GNN_SHAPES["ogb_products"], device="cpu")
+    # without GRASP, or on another shape, the plain step is built
+    t_steps.gnn_train_step(dataclasses.replace(gin, grasp=False),
+                           t_cfgs.GNN_SHAPES["ogb_products"], device="cpu")
+    t_steps.gnn_train_step(gin, t_cfgs.GNN_SHAPES["minibatch_lg"], device="cpu")
+
+
+def test_gnn_smoke_train_step_loss():
+    """tests/test_smoke_archs.py's train-step check on the port: the cell
+    loss of each kind is finite with finite, non-zero gradients."""
+    rng = np.random.default_rng(1)
+    for arch in ARCHS:
+        cfg = t_cfgs.reduced(t_cfgs.get_arch(arch))
+        shape = t_cfgs.GNNShape("s", "molecule", 10, 20, d_feat=16, batch_graphs=4)
+        batch = t_pipe.gnn_molecule_batch(rng, shape)
+        if cfg.kind in ("gin", "pna"):
+            batch["labels"] = rng.integers(0, cfg.d_out, 4).astype(np.int32)
+        params = t_gnn.init(torch.Generator().manual_seed(0), cfg, 16, device="cpu")
+        loss, grads = value_and_grad(t_steps.gnn_loss, params, cfg, batch)
+        assert np.isfinite(float(loss)), arch
+        gn = sum(float(g.abs().sum()) for g in tree_leaves(grads))
+        assert np.isfinite(gn) and gn > 0, arch

@@ -153,3 +153,34 @@ def test_embedding_bag_wrappers_refuse_meta_tensors():
         ops.hot_bag(hot, ids, mask, hot_size=8)
     with pytest.raises(ValueError):  # ids on another device than the table
         embedding_bag.hot_bag_hot_part(torch.zeros((16, 4)), ids, mask)
+
+
+def test_training_entry_points_without_device_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+    from repro_torch.train import optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gin, mind = base.reduced(base.get_arch("gin-tu")), base.reduced(base.get_arch("mind"))
+    molecule = base.GNN_SHAPES["molecule"]
+    state = {"m": {"w": np.zeros((2, 3), np.float32)}, "step": np.zeros((), np.int32)}
+    args = (lambda p, b: (p["w"] * b["x"]).sum(), lambda: {"w": torch.ones(3)},
+            optimizer.OptConfig(name="sgd"), TrainerConfig(num_steps=2))
+    for build in (lambda **kw: Trainer(*args, **kw),
+                  lambda **kw: steps.gnn_train_step(gin, molecule, **kw),
+                  lambda **kw: steps.recsys_train_step(mind, **kw),
+                  lambda **kw: convert.opt_state_from_numpy(state, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+        build(device="cpu")
+    trainer = Trainer(*args, device="cpu")
+    out = trainer.fit(lambda step: {"x": np.ones(3, np.float32)})
+    assert out["params"]["w"].device.type == "cpu" and int(out["opt"]["step"]) == 2
+    assert convert.opt_state_from_numpy(state, "cpu")["step"].dtype == torch.int32
+    with pytest.raises(NotImplementedError, match="dist"):
+        steps.gnn_train_step(base.get_arch("gin-tu"), base.GNN_SHAPES["ogb_products"],
+                             device="cpu")

@@ -15,11 +15,15 @@ from repro.configs import base as j_cfgs
 from repro.data import pipeline as j_pipe
 from repro.nn import layers as j_layers
 from repro.nn import recsys as j_recsys
+from repro.train import optimizer as j_opt
 from repro_torch import convert
 from repro_torch.configs import base as t_cfgs
 from repro_torch.data import pipeline as t_pipe
+from repro_torch.launch import steps as t_steps
 from repro_torch.nn import layers as t_layers
 from repro_torch.nn import recsys as t_recsys
+from repro_torch.train.trainer import value_and_grad
+from repro_torch.train.tree import tree_leaves
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 J_CFG = j_cfgs.reduced(j_cfgs.get_arch("mind"))
@@ -161,3 +165,133 @@ def test_mind_params_from_numpy_checks_tables():
     tree["items_hot"] = tree["items"][:10]
     with pytest.raises(ValueError):
         convert.mind_params_from_numpy(tree, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# training: label-aware attention, the sampled-softmax loss and its
+# gradients against jax.value_and_grad, and one composed AdamW step
+# ---------------------------------------------------------------------------
+
+
+def train_batch(seed=7, b=64, uniform=False):
+    """A train batch; ``uniform`` draws the history uniformly (90% of it
+    past a 100-row hot split), so the split table's cold references
+    overflow their cap (512 history ids: cap 256)."""
+    rng = np.random.default_rng(seed)
+    batch = t_pipe.recsys_batch(rng, T_CFG, t_cfgs.RecsysShape("t", "train", b))
+    if uniform:
+        batch["hist"] = rng.integers(0, T_CFG.n_items, batch["hist"].shape).astype(np.int32)
+    return batch
+
+
+def assert_same_tree(got, want, tol=TOL):
+    t_leaves, j_leaves = tree_leaves(got), jax.tree_util.tree_leaves(want)
+    assert len(t_leaves) == len(j_leaves)
+    for i, (t, j) in enumerate(zip(t_leaves, j_leaves)):
+        assert tuple(t.shape) == np.shape(j), i
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=f"leaf {i}", **tol)
+
+
+def test_label_aware_attention_matches_jax():
+    rng = np.random.default_rng(8)
+    interests = rng.standard_normal((16, 4, 16)).astype(np.float32)
+    target = rng.standard_normal((16, 16)).astype(np.float32)
+    want = j_recsys.label_aware_attention(jnp.asarray(interests), jnp.asarray(target))
+    got = t_recsys.label_aware_attention(torch.as_tensor(interests), torch.as_tensor(target))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for p in (0.5, 4.0):
+        np.testing.assert_allclose(
+            t_recsys.label_aware_attention(torch.as_tensor(interests), torch.as_tensor(target),
+                                           p).numpy(),
+            np.asarray(j_recsys.label_aware_attention(jnp.asarray(interests),
+                                                      jnp.asarray(target), p)), **TOL)
+
+
+@pytest.mark.parametrize("hot_rows,uniform", [(0, False), (100, False), (100, True)],
+                         ids=["dense", "split", "split-cold-overflow"])
+def test_loss_and_every_gradient_match_jax(hot_rows, uniform):
+    jp, tp = params_pair(hot_rows=hot_rows)
+    batch = train_batch(uniform=uniform)
+    if uniform:
+        assert (batch["hist"] >= hot_rows).sum() > 256
+    want_loss, want_grads = jax.value_and_grad(j_recsys.loss_fn)(jp, J_CFG, to_jax(batch))
+    loss, grads = value_and_grad(t_recsys.loss_fn, tp, T_CFG, batch)
+    np.testing.assert_allclose(float(loss), float(want_loss), **TOL)
+    assert sorted(grads) == sorted(want_grads)
+    assert_same_tree(grads, want_grads)
+    table = "items" if hot_rows == 0 else "items_cold"
+    assert float(grads[table].abs().sum()) > 0       # the table's gradient is dense
+    assert tuple(grads[table].shape) == tuple(tp[table].shape)
+    if uniform:
+        # overflowing cold references read a zero row, so nothing reaches the cold
+        # rows of the history ids past the cap but not in targets or negatives
+        flat = batch["hist"].reshape(-1)
+        cold = np.nonzero(flat >= hot_rows)[0]
+        others = np.concatenate([batch["target"], batch["negatives"], flat[cold[:256]]])
+        dropped = np.setdiff1d(flat[cold[256:]], others) - hot_rows
+        assert dropped.size > 0 and not grads["items_cold"][dropped].any()
+
+
+def test_train_step_matches_the_jax_composition():
+    """One AdamW (lr 1e-3) step as the JAX package's recsys train cell
+    composes it (launch/steps.py: value_and_grad of loss_fn, then
+    opt_update), from a mid-training state."""
+    jp, tp = params_pair()
+    j_init, j_update = j_opt.make(j_opt.OptConfig(name="adamw", lr=1e-3))
+    js = j_init(jp)
+    for seed in (1, 2):  # two earlier steps of the JAX package
+        _, g = jax.value_and_grad(j_recsys.loss_fn)(jp, J_CFG, to_jax(train_batch(seed)))
+        jp, js = j_update(g, js, jp)
+    tp = convert.mind_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    ts = convert.opt_state_from_numpy(jax.tree_util.tree_map(np.asarray, js), "cpu")
+    opt_init, step = t_steps.recsys_train_step(T_CFG, device="cpu")
+    assert_same_tree(opt_init(tp), j_init(jp))
+    batch = train_batch(3)
+    want_loss, g = jax.value_and_grad(j_recsys.loss_fn)(jp, J_CFG, to_jax(batch))
+    jp, js = j_update(g, js, jp)
+    tp, ts, metrics = step(tp, ts, batch)
+    np.testing.assert_allclose(float(metrics["loss"]), float(want_loss), **TOL)
+    assert_same_tree(tp, jp)
+    assert_same_tree(ts, js)
+    assert int(ts["step"]) == 3
+
+
+def test_hot_route_refuses_autograd_and_plain_trains():
+    """K1's launch has no backward: the hot route raises while autograd
+    would record a table that requires grad; under no_grad it serves, and
+    the plain route trains."""
+    _, tp = params_pair()
+    batch = train_batch()
+    live = dict(tp, items=tp["items"].detach().requires_grad_())
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_recsys.loss_fn(live, T_CFG, batch, impl="hot")
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_recsys.user_interests(live, T_CFG, batch["hist"], batch["hist_mask"], impl="hot")
+    with pytest.raises(RuntimeError, match="no backward"):
+        value_and_grad(t_recsys.loss_fn, tp, T_CFG, batch, "hot")
+    with torch.no_grad():
+        hot = t_recsys.loss_fn(live, T_CFG, batch, impl="hot")
+    np.testing.assert_allclose(float(hot), float(t_recsys.loss_fn(tp, T_CFG, batch)), **TOL)
+    opt_init, step = t_steps.recsys_train_step(T_CFG, device="cpu")
+    state, losses = opt_init(tp), []
+    for _ in range(5):
+        tp, state, metrics = step(tp, state, batch)
+        losses.append(float(metrics["loss"]))
+    assert losses[-1] < losses[0]
+
+
+def test_mind_interests_and_loss():
+    """tests/test_nn.py's MIND check on the port."""
+    cfg = T_CFG
+    params = t_recsys.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    hist = rng.integers(0, cfg.n_items, (16, cfg.hist_len)).astype(np.int32)
+    mask = np.ones_like(hist, bool)
+    interests = t_recsys.user_interests(params, cfg, hist, mask)
+    assert tuple(interests.shape) == (16, cfg.n_interests, cfg.embed_dim)
+    batch = {"hist": hist, "hist_mask": mask,
+             "target": rng.integers(0, cfg.n_items, 16).astype(np.int32),
+             "negatives": rng.integers(0, cfg.n_items, 32).astype(np.int32)}
+    loss, grads = value_and_grad(t_recsys.loss_fn, params, cfg, batch)
+    assert np.isfinite(float(loss))
+    assert sum(float(g.abs().sum()) for g in tree_leaves(grads)) > 0.0
