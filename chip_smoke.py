@@ -80,7 +80,20 @@ Phases, each of which must pass:
      minibatch_lg blocks of the ``lj`` graph, 12 steps clean and with
      checkpoints every 4 and failures at 5 and 9: two restarts, and the
      same losses and final state bit for bit under deterministic
-     algorithms.
+     algorithms;
+ 12. GRASP-partitioned GIN training (dist.collectives) on one NCCL rank of
+     a world-size-1 process group, which launches no kernel either (the
+     counts stay 0): (a) gin-tu at full width, d_feat 100, through
+     launch.steps.gnn_train_step's GRASP branch over the ``lj`` graph of
+     phase 5 (the cell's spec over its counts; no edge dropped): one step
+     against the unpartitioned gnn_loss and AdamW on the same weights on
+     the card (loss within 1e-5 relative, each new parameter leaf within
+     1e-5 of its largest entry), then 4 steps of each schedule (ms a step,
+     peak memory) and one profiled step's top kernels; (b) the pipelined
+     and the sequential schedule, 3 steps each, bit for bit under
+     deterministic algorithms on ``lj`` at scale 16; (c) one step on the
+     quickstart's ``tw`` graph on the card against a gloo rank on the CPU
+     (phase 11's GIN tolerances).
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
@@ -140,6 +153,25 @@ TRAIN_GIN_FAIL_AT = (5, 9)
 # why; NequIP's is tests/test_torch_gnn.py's bound against the JAX package)
 TRAIN_TOL = {"gin": 1e-5, "pna": 5e-5, "egnn": 5e-5, "nequip": 2e-3, "mind": 1e-5}
 TRAIN_GRAD_SCALE = {"gin": 1e-5, "pna": 5e-3, "egnn": 5e-5, "nequip": 2.0 ** -5, "mind": 1e-5}
+# GRASP-partitioned GIN training (phase 12): steps a schedule is timed over
+# (the first not counted); the steps and the lj scale of the bit-for-bit
+# check of the two schedules (deterministic index_add_ adds each run of one
+# index serially, 0.7 ms per 1,000 pads into row 0: scripts/
+# index_add_pad_runs.py; scale 22's 28.6M pads would take ~20 s a call);
+# the hot prefix of the card-vs-CPU check on the tw graph
+GRASP_STEPS = 4
+GRASP_EXACT_STEPS = 3
+GRASP_EXACT_SCALE = 16
+GRASP_CHECK_HOT = 1024
+# the GRASP step against the unpartitioned one at real size: each summed
+# gradient leaf and new parameter leaf within this share of the leaf's
+# largest entry. The card's atomic sums alone move one step's gradients by
+# up to 9.6e-5 of a leaf and its new parameters by up to 2.8e-4 from run to
+# run at this size (GIN's scalar eps gradient is a sum over 4.19M x 64
+# terms that cancel to 4e-4; AdamW's first step divides each entry by its
+# magnitude), in the unpartitioned step as in the GRASP step
+# (scripts/grasp_step_noise.py); the loss comes out the same bits
+GRASP_REAL_LEAF_BOUND = 1e-3
 
 
 def card_line() -> str:
@@ -1761,6 +1793,307 @@ def run_training(dev, params, g2) -> None:
         fail(f"training launched a kernel: {launched}")
 
 
+def grasp_steps(step, params, state, block, n: int):
+    """``n`` steps from (params, state): each step's loss and CUDA-event ms,
+    and the last parameters and state."""
+    import torch
+
+    losses, ms = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, m = step(params, state, block)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(m["loss"])
+    return losses, ms, params, state
+
+
+def recording(opt_update, seen: list):
+    """``opt_update`` that keeps each step's (summed) gradients in ``seen``."""
+    def update(grads, state, params):
+        seen.append(grads)
+        return opt_update(grads, state, params)
+    return update
+
+
+def grasp_real_size(dev, g2) -> None:
+    """Phase 12 (a): GIN (gin-tu at its published width) trained by the
+    GRASP cell's step, launch.steps.gnn_train_step's GRASP branch, over the
+    lj graph of phase 5 on one rank: the cell's spec over the stand-in's
+    counts, its partition (no edge dropped), one step against the
+    unpartitioned loss and AdamW on the same weights on the card (the loss
+    to 1e-5 relative, each summed gradient leaf and new parameter leaf
+    within GRASP_REAL_LEAF_BOUND of its largest entry), then GRASP_STEPS
+    steps of each schedule (ms a step, peak memory) and one profiled
+    step."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import convert
+    from repro_torch.configs.base import GNN_SHAPES, get_arch
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch.steps import N_CLASSES, gnn_loss, gnn_train_step
+    from repro_torch.nn import gnn
+    from repro_torch.train.optimizer import OptConfig, make
+    from repro_torch.train.trainer import value_and_grad
+
+    cpu = torch.device("cpu")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"card memory {total} bytes; HOT_REPLICA_BUDGET_BYTES ({coll.HOT_REPLICA_BUDGET_BYTES} "
+          f"bytes) is {coll.HOT_REPLICA_BUDGET_BYTES / total:.4%} of it")
+    cfg = get_arch("gin-tu")
+    # ogb_products' counts cannot hold the stand-in's 4.19M vertices: the
+    # cell's own spec call over the stand-in's counts
+    shape = dataclasses.replace(GNN_SHAPES["ogb_products"], n_nodes=g2.num_nodes,
+                                n_edges=g2.num_edges)
+    opt_init, step, spec = gnn_train_step(cfg, shape, device=dev)
+    if spec != coll.partition_spec_for(g2.num_nodes, g2.num_edges, 1,
+                                       hot_budget_bytes=coll.HOT_REPLICA_BUDGET_BYTES,
+                                       elem_bytes=shape.d_feat * 4):
+        fail("GRASP training: gnn_train_step's spec is not the cell's")
+    t0 = time.perf_counter()
+    part = coll.grasp_partition(g2, spec)
+    part_s = time.perf_counter() - t0
+    kept = int(part["emask"].sum())
+    print(f"GRASP partition of the lj graph of phase 5 ({g2.num_nodes} vertices, {g2.num_edges} "
+          f"edges) for 1 rank: {dataclasses.asdict(spec)}; dropped {part['dropped']}, pad slots "
+          f"{spec.e_loc - kept} of {spec.e_loc} (edst 0, masked); the hot prefix is the source of "
+          f"{float((g2.indices < spec.hot).mean()):.4f} of the edges; grasp_partition "
+          f"{part_s:.1f} s on the host")
+    if part["dropped"] != 0:
+        fail(f"GRASP training: the partition dropped {part['dropped']} edges")
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((spec.num_nodes, shape.d_feat), dtype=np.float32)
+    labels = rng.integers(0, cfg.d_out, spec.num_nodes).astype(np.int32)
+    params = gnn.init(torch.Generator().manual_seed(0), cfg, shape.d_feat, device=dev)
+    opt_update = make(OptConfig(name="adamw", lr=1e-3))[1]
+
+    # the unpartitioned step on the same weights, on the card
+    ref = {"x": torch.from_numpy(x).to(dev), "src": torch.from_numpy(g2.indices).to(dev),
+           "dst": torch.from_numpy(g2.dst_ids()).to(dev),
+           "emask": torch.ones(g2.num_edges, dtype=torch.bool, device=dev),
+           "labels": torch.from_numpy(labels).to(dev)}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss_u, grads_u = value_and_grad(gnn_loss, params, cfg, ref)
+    new_u = opt_update(grads_u, opt_init(params), params)[0]
+    end.record()
+    end.synchronize()
+    print(f"unpartitioned GIN step on the card (gnn_loss + AdamW, first call): "
+          f"{start.elapsed_time(end):.3f} ms, peak "
+          f"{(torch.cuda.max_memory_allocated(dev) - base) / 2**30:.3f} GiB above the earlier "
+          f"tensors; loss {float(loss_u):.7f}")
+    del ref
+    grads_u, new_u = gnn.to_device(grads_u, cpu), gnn.to_device(new_u, cpu)
+
+    block = convert.grasp_batch_from_numpy(coll.grasp_batch(x, labels, part, spec), 0, dev)
+    del x, part
+    torch.cuda.empty_cache()
+    seen = []
+    checked = coll.make_grasp_gin_step(spec, cfg, shape.d_feat, N_CLASSES, None,
+                                       recording(opt_update, seen), device=dev)
+    new_g, _, m = checked(params, opt_init(params), block)
+    loss_g = float(m["loss"])
+    rel = abs(loss_g - float(loss_u)) / abs(float(loss_u))
+    grad_rel = leaf_relative(tree_errors(seen[0], grads_u), grads_u)
+    param_rel = leaf_relative(tree_errors(new_g, new_u), new_u)
+    print(f"GRASP step (pipelined) against the unpartitioned step: loss {loss_g:.7f} (relative "
+          f"diff {rel:.3e}, bound 1e-5); largest leaf max abs diff over the leaf's largest "
+          f"entry: gradients {max(grad_rel):.3e} (leaf {int(np.argmax(grad_rel))}), new "
+          f"parameters {max(param_rel):.3e} (leaf {int(np.argmax(param_rel))}); bound "
+          f"{GRASP_REAL_LEAF_BOUND:.0e}")
+    if not (np.isfinite(loss_g) and rel <= 1e-5 and max(grad_rel) <= GRASP_REAL_LEAF_BOUND
+            and max(param_rel) <= GRASP_REAL_LEAF_BOUND):
+        fail("GRASP training: the GRASP step differs from the unpartitioned step")
+    del seen, new_g, grads_u, new_u
+
+    sequential = coll.make_grasp_gin_step(spec, cfg, shape.d_feat, N_CLASSES, None, opt_update,
+                                          overlap=False, device=dev)
+    for label, fn in (("pipelined", step), ("sequential", sequential)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        losses, ms, p, s = grasp_steps(fn, params, opt_init(params), block, GRASP_STEPS)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        losses = [float(v) for v in losses]
+        print(f"GRASP GIN {label} at the cell's defaults: {GRASP_STEPS} steps, median "
+              f"{statistics.median(ms[1:]):.3f} ms a step over steps 2 on (first {ms[0]:.3f}; "
+              f"all {[round(v, 3) for v in ms]}), losses {losses}, peak {peak / 2**30:.3f} GiB "
+              f"above the earlier tensors, {wall:.1f} s")
+        if not np.isfinite(losses).all():
+            fail(f"GRASP training {label}: losses {losses}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        spin_pad()
+        step(p, s, block)
+        spin_pad()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "spin_kernel" not in e.key),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"GRASP GIN pipelined, one profiled step: device busy {busy:.3f} ms; top kernels: "
+          + "; ".join(f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                      for e in kernels[:8]))
+
+
+def grasp_schedules_exact(dev, g) -> None:
+    """Phase 12 (b): the two schedules of the GRASP step on ``g`` (a quarter
+    of its vertices hot, the cell's pub_frac and edge_slack, d_feat 100,
+    gin-tu), GRASP_EXACT_STEPS steps each, loss and parameters bit for bit
+    under torch.use_deterministic_algorithms."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs.base import get_arch
+    from repro_torch.dist import collectives as coll
+    from repro_torch.nn import gnn
+    from repro_torch.train.optimizer import OptConfig, make
+    from repro_torch.train.tree import tree_leaves
+
+    cfg, d_feat = get_arch("gin-tu"), 100
+    spec = coll.partition_spec_for(g.num_nodes, g.num_edges, 1, hot=g.num_nodes // 4)
+    part = coll.grasp_partition(g, spec)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((spec.num_nodes, d_feat), dtype=np.float32)
+    labels = rng.integers(0, cfg.d_out, spec.num_nodes).astype(np.int32)
+    block = convert.grasp_batch_from_numpy(coll.grasp_batch(x, labels, part, spec), 0, dev)
+    params = gnn.init(torch.Generator().manual_seed(1), cfg, d_feat, device=dev)
+    opt_init, opt_update = make(OptConfig(name="adamw", lr=1e-3))
+
+    def runs():
+        out = {}
+        for overlap in (False, True):
+            step = coll.make_grasp_gin_step(spec, cfg, d_feat, cfg.d_out, None, opt_update,
+                                            overlap=overlap, device=dev)
+            losses, ms, p, s = grasp_steps(step, params, opt_init(params), block,
+                                           GRASP_EXACT_STEPS)
+            out[overlap] = (losses, p, s, ms)
+        return out
+
+    out, refused = deterministic(runs)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(out[False][:3]),
+                                                 tree_leaves(out[True][:3])))
+    print(f"GRASP schedules on {g.num_nodes} vertices, {g.num_edges} edges (hot {spec.hot}, "
+          f"cold {spec.cold_per_dev}, c_pub {spec.c_pub}, e_loc {spec.e_loc}, dropped "
+          f"{part['dropped']}), {GRASP_EXACT_STEPS} steps each under deterministic algorithms: "
+          f"pipelined against sequential {'bit for bit' if same else 'DIFFERENT'} (losses "
+          f"{[float(v) for v in out[True][0]]}; ms a step sequential "
+          f"{[round(v, 3) for v in out[False][3]]}, pipelined {[round(v, 3) for v in out[True][3]]})")
+    if refused is not None or not same:
+        fail("GRASP training: the pipelined schedule differs from the sequential one"
+             + (f" (deterministic mode refused: {refused})" if refused else ""))
+
+
+def grasp_card_vs_cpu(dev, g) -> None:
+    """Phase 12 (c): one GRASP step (gin-tu at full width, d_feat 100) on
+    ``g`` (the tw graph of the quickstart) with GRASP_CHECK_HOT hot rows, on
+    the card (the NCCL rank) against the CPU (a gloo group of the same
+    rank), with phase 11's GIN tolerances: the loss within TRAIN_TOL, each
+    summed gradient leaf within TRAIN_GRAD_SCALE of its largest entry, and
+    AdamW on the card within TRAIN_TOL of the CPU's AdamW of the card's
+    gradients. The card runs under deterministic algorithms: with atomic
+    sums its gradients move by up to 4.5e-6 of a leaf from run to run and
+    came within 9.6e-6 / 1.02e-5 of the CPU's (scripts/grasp_step_noise.py);
+    deterministic, 8.4e-6 every run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.dist import collectives as coll
+    from repro_torch.nn import gnn
+    from repro_torch.train.optimizer import OptConfig, make
+
+    cfg, d_feat, cpu = get_arch("gin-tu"), 100, torch.device("cpu")
+    tol = TRAIN_TOL["gin"]
+    spec = coll.partition_spec_for(g.num_nodes, g.num_edges, 1, hot=GRASP_CHECK_HOT)
+    part = coll.grasp_partition(g, spec)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((spec.num_nodes, d_feat), dtype=np.float32)
+    labels = rng.integers(0, cfg.d_out, spec.num_nodes).astype(np.int32)
+    batch = coll.grasp_batch(x, labels, part, spec)
+    batch = {k: (v if k == "x_hot" else v[0]) for k, v in batch.items()}
+    params = gnn.init(torch.Generator().manual_seed(2), cfg, d_feat, device="cpu")
+    opt_init, opt_update = make(OptConfig(name="adamw", lr=1e-3))
+    def run(d, group):
+        seen = []
+        step = coll.make_grasp_gin_step(spec, cfg, d_feat, cfg.d_out, group,
+                                        recording(opt_update, seen), device=d)
+        p = gnn.to_device(params, d)
+        s = opt_init(p)
+        _, _, m = step(p, s, batch)
+        return m["loss"], seen[0], p, s
+
+    loss_c, grads_c, _, _ = run(cpu, dist.new_group(backend="gloo"))
+    (loss_d, grads_d, p_d, s_d), refused = deterministic(lambda: run(dev, None))
+    if refused is not None:
+        fail(f"GRASP training: deterministic mode refused the card-vs-CPU step: {refused}")
+    grad_rel = leaf_relative(tree_errors(grads_d, grads_c), grads_c)
+    adamw_card = opt_update(grads_d, s_d, p_d)[0]
+    adamw_cpu = opt_update(*(gnn.to_device(t, cpu) for t in (grads_d, s_d, p_d)))[0]
+    adamw_err = tree_errors(adamw_card, adamw_cpu)
+    print(f"GRASP step card vs CPU on {g.num_nodes} vertices, {g.num_edges} edges (hot "
+          f"{spec.hot}, c_pub {spec.c_pub}, e_loc {spec.e_loc}): loss card {float(loss_d):.7f} "
+          f"CPU {float(loss_c):.7f}; gradients, largest leaf max abs diff over the leaf's largest "
+          f"entry {max(grad_rel):.3e} (bound {TRAIN_GRAD_SCALE['gin']:.0e}); AdamW on the card vs "
+          f"the CPU's of the card's gradients {max(adamw_err):.3e}; tolerance {tol}")
+    if not (torch.isfinite(loss_d) and torch.allclose(loss_d.cpu(), loss_c, rtol=tol, atol=tol)
+            and max(grad_rel) <= TRAIN_GRAD_SCALE["gin"] and within(adamw_card, adamw_cpu, tol)):
+        fail("GRASP training: the card differs from the CPU")
+
+
+def run_grasp_training(dev, g2, qs_graph) -> None:
+    """Phase 12: the GRASP-partitioned GIN train step (dist.collectives) on
+    one NCCL rank of a world-size-1 process group (a file:// store under
+    build/), which launches no kernel of the port: the JAX step gathers with
+    jnp.take and reduces with segment_sum, and no pallas_call has a
+    backward. K1's, K2's and K3's launch counts are 0 at its start and still
+    0 at its end."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
+    from repro_torch.kernels.hot_gather.hot_gather import (hot_gather_hot_part,
+                                                           hot_gather_segment_sum)
+
+    counters = (hot_gather_hot_part, hot_gather_segment_sum, hot_bag_hot_part)
+    for c in counters:
+        c.launches = 0
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    store = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        phase("12a (GRASP GIN at real size)", grasp_real_size, dev, g2)
+        torch.cuda.empty_cache()
+        phase("12b (GRASP schedules bit for bit)", grasp_schedules_exact, dev,
+              dbg_graph("lj", GRASP_EXACT_SCALE))
+        phase("12c (GRASP step, card vs CPU)", grasp_card_vs_cpu, dev, qs_graph)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    launched = {c.__name__: c.launches for c in counters}
+    print(f"GRASP training: kernel launches {launched}")
+    if any(launched.values()):
+        fail(f"GRASP training launched a kernel: {launched}")
+
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -1770,6 +2103,11 @@ def phase(label: str, fn, *args):
 
 
 def main() -> int:
+    # phase 12's GRASP step frees and takes 20-32 GiB message tensors among
+    # 1 GiB activations: with fixed segments the caching allocator split the
+    # freed blocks and a later 20.47 GiB tensor found no room (OOM with 21 GiB
+    # cached and 17 GiB free); expandable segments map the pages anew
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1857,6 +2195,11 @@ def main() -> int:
     # training runs after the kernels' timing: after its profiled fit,
     # torch.profiler on the card lost 2 of every 20 kernels in each window
     phase("11 (training)", run_training, dev, params, real_graph)
+    # the earlier phases' tensors on the card go before the 22-34 GB message
+    # tensors of phase 12
+    del params, k1_mix, dense_mix, cache_mix, gnn_mix
+    torch.cuda.empty_cache()
+    phase("12 (GRASP-partitioned GIN training)", run_grasp_training, dev, real_graph, qs_graph)
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

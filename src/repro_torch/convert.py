@@ -1,6 +1,6 @@
 """Carry the reference's state across: the graph, the plan and the trace
-of the graph pipeline, MIND's parameters, the GNNs' parameters and the
-optimizers' state. Each
+of the graph pipeline, MIND's parameters, the GNNs' parameters, the
+optimizers' state and a rank's block of the GRASP step's batch. Each
 function takes the JAX package's numpy fields (or any arrays of the same
 values) and returns the port's object, with the dtypes the port's code
 expects."""
@@ -96,3 +96,18 @@ def opt_state_from_numpy(state, device: str | torch.device = devices.DEFAULT_DEV
     included); ``None`` entries stay ``None``."""
     dev = devices.resolve(device)
     return tree_map(lambda a: _tensor_of(a, dev), state)
+
+
+def grasp_batch_from_numpy(batch: Dict, rank: int,
+                           device: str | torch.device = devices.DEFAULT_DEVICE) -> Dict:
+    """Rank ``rank``'s block of a GRASP step's batch in the JAX package's
+    layout (``dist.collectives.grasp_batch``: ``x_hot`` replicated, every
+    other entry with a leading (P, ...) rank axis) -> tensors on ``device``:
+    ``x_hot`` whole and row ``rank`` of the others, each with its array's
+    dtype."""
+    dev = devices.resolve(device)
+    P = np.shape(batch["x_cold"])[0]
+    if not 0 <= rank < P:
+        raise ValueError(f"rank {rank} outside the batch's {P} blocks")
+    return {k: torch.as_tensor(np.asarray(v if k == "x_hot" else v[rank]), device=dev)
+            for k, v in batch.items()}

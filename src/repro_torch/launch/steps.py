@@ -4,9 +4,11 @@
 
 Each builder returns ``(opt_init, step)`` with ``step(params, opt_state,
 batch) -> (new_params, new_state, {"loss": loss})``; the batch goes to the
-builder's device. Only what training needs is here: the abstract cells,
-shardings and ``dryrun`` stay with the LM stack, and the GRASP-partitioned
-GIN step (``gin`` with ``grasp`` on ``ogb_products``) with the dist slice.
+builder's device. ``gin`` with ``grasp`` on ``ogb_products`` builds the
+GRASP-partitioned step instead (``dist.collectives``: hot rows replicated,
+cold rows owned, a halo exchange) over an initialised process group, and
+also returns the partition's spec. Only what training needs is here: the
+abstract cells, shardings and ``dryrun`` stay with the LM stack.
 
 ``gnn_loss`` reproduces the JAX package's loss exactly, including a state
 of it: GIN and PNA have ``cfg.d_out = 16`` logits, while the GNN batch
@@ -88,14 +90,28 @@ def _adamw():
 
 def gnn_train_step(cfg: GNNConfig, shape: GNNShape,
                    device: str | torch.device = devices.DEFAULT_DEVICE):
-    """The GNN cell's step (the non-GRASP branch of the JAX package's
-    ``_gnn_train_cell``)."""
-    if cfg.kind == "gin" and cfg.grasp and shape.name == "ogb_products":
-        raise NotImplementedError(
-            "the GRASP-partitioned GIN step (gin with grasp on ogb_products: hot rows "
-            "replicated, cold rows owned, a halo exchange) joins with the dist slice")
+    """The GNN cell's step (the JAX package's ``_gnn_train_cell``).
+
+    For ``gin`` with ``grasp`` on ``ogb_products`` it is the GRASP cell
+    (``_gnn_grasp_cell``): the spec from ``partition_spec_for(shape.n_nodes,
+    shape.n_edges, world size)`` with the hot prefix sized from
+    ``HOT_REPLICA_BUDGET_BYTES`` at ``shape.d_feat`` float32 features, and
+    ``make_grasp_gin_step`` over the default process group, which the
+    caller initialises (the JAX cell's mesh): without one this raises. It
+    returns ``(opt_init, step, spec)``; partition the graph with the spec
+    (``grasp_partition``, ``grasp_batch``) and give ``step`` this rank's
+    block (``convert.grasp_batch_from_numpy``)."""
     dev = devices.resolve(device)
     opt_init, opt_update = _adamw()
+    if cfg.kind == "gin" and cfg.grasp and shape.name == "ogb_products":
+        from repro_torch.dist import collectives as coll  # which imports this module
+
+        spec = coll.partition_spec_for(
+            shape.n_nodes, shape.n_edges, coll.require_group(),
+            hot_budget_bytes=coll.HOT_REPLICA_BUDGET_BYTES, elem_bytes=shape.d_feat * 4)
+        step = coll.make_grasp_gin_step(spec, cfg, shape.d_feat, N_CLASSES, None, opt_update,
+                                        device=dev)
+        return opt_init, step, spec
 
     def step(params, opt_state, batch):
         loss, grads = value_and_grad(gnn_loss, params, cfg, batch_to(batch, dev))

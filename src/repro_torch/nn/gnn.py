@@ -64,8 +64,25 @@ def _edges(batch: Dict, dev: torch.device):
             _get(batch, "emask", dev).bool())
 
 
+class _SegmentSum(torch.autograd.Function):
+    """``jax.ops.segment_sum(x, dst, n)`` by ``index_add_``, with its
+    gradient ``g[dst]``. Autograd through ``index_add_`` itself would keep
+    the (E, d) source alive for the backward (it reads the source's shape);
+    this keeps only ``dst``: at 57M edges that is 13.65 GiB a layer."""
+
+    @staticmethod
+    def forward(ctx, x, dst, n):
+        ctx.save_for_backward(dst)
+        return x.new_zeros((n,) + tuple(x.shape[1:])).index_add_(0, dst, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        return g.index_select(0, dst), None, None
+
+
 def _seg_sum(x: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
-    return x.new_zeros((n,) + tuple(x.shape[1:])).index_add_(0, dst, x)
+    return _SegmentSum.apply(x, dst, n)
 
 
 def _seg_extreme(x: torch.Tensor, dst: torch.Tensor, n: int, reduce: str) -> torch.Tensor:

@@ -599,3 +599,143 @@ def test_trainer_restarts_on_card_bit_exact(cuda, tmp_path):
     assert {h["step"]: h for h in faulty.history} == {h["step"]: h for h in clean.history}
     for a, b in zip(tree_leaves(state), tree_leaves(clean_state)):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.fixture
+def nccl_group(cuda, tmp_path):
+    """A world-size-1 NCCL process group (the default group) for the card,
+    and a gloo group of the same rank for the CPU beside it."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        yield dist.new_group(backend="gloo")
+    finally:
+        dist.destroy_process_group()
+
+
+def grasp_case(seed=0):
+    """A DBG-ordered rmat(8, 6) partitioned for one rank with 64 hot rows and
+    the cell's caps (pub_frac 0.25, edge_slack 1.5), GIN reduced, d_feat 16,
+    labels in [0, d_out): the spec, this rank's numpy batch and parameters
+    on the CPU."""
+    from repro_torch.configs import base
+    from repro_torch.core.reorder import reorder_ranks
+    from repro_torch.dist import collectives as coll
+    from repro_torch.graph.csr import apply_reorder
+    from repro_torch.nn import gnn
+
+    g = generate.rmat(8, 6, seed=1)
+    g = apply_reorder(g, reorder_ranks(g, "dbg"))
+    spec = coll.partition_spec_for(g.num_nodes, g.num_edges, 1, hot=64)
+    cfg = base.reduced(base.get_arch("gin-tu"))
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((spec.num_nodes, 16)).astype(np.float32)
+    labels = rng.integers(0, cfg.d_out, spec.num_nodes).astype(np.int32)
+    batch = coll.grasp_batch(x, labels, coll.grasp_partition(g, spec), spec)
+    batch = {k: (v if k == "x_hot" else v[0]) for k, v in batch.items()}
+    return spec, cfg, batch, gnn.init(torch.Generator().manual_seed(seed), cfg, 16, device="cpu")
+
+
+@pytest.mark.cuda
+def test_grasp_step_on_card_matches_cpu(nccl_group):
+    """The GRASP GIN step on one NCCL rank against the same step on one gloo
+    rank on the CPU, 3 steps: each loss within 1e-5, each step's summed
+    gradients within 1e-5 of each leaf's largest entry, and AdamW on the
+    card within 1e-5 of the CPU's AdamW of the same gradients."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.nn import gnn
+    from repro_torch.train import optimizer
+    from repro_torch.train.tree import tree_leaves
+
+    spec, cfg, batch, params = grasp_case()
+    opt_init, opt_update = optimizer.make(optimizer.OptConfig(name="adamw", lr=1e-3))
+    runs = {}
+    for label, dev, group in (("cpu", torch.device("cpu"), nccl_group),
+                              ("card", torch.device("cuda"), None)):
+        grads = []
+
+        def recording(g, s, p):
+            grads.append((g, s, p))
+            return opt_update(g, s, p)
+
+        step = coll.make_grasp_gin_step(spec, cfg, 16, cfg.d_out, group, recording, device=dev)
+        p = gnn.to_device(params, dev)
+        s = opt_init(p)
+        losses = []
+        for _ in range(3):
+            p, s, m = step(p, s, batch)
+            losses.append(m["loss"])
+        runs[label] = (losses, grads, p)
+    (l_cpu, g_cpu, _), (l_card, g_card, p_card) = runs["cpu"], runs["card"]
+    for a, b in zip(l_card, l_cpu):
+        assert torch.isfinite(a)
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    for (gd, sd, pd), (gc, _, _) in zip(g_card, g_cpu):
+        for a, b in zip(tree_leaves(gd), tree_leaves(gc)):
+            assert a.device.type == "cuda"
+            assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        want = opt_update(*(gnn.to_device(t, torch.device("cpu")) for t in (gd, sd, pd)))
+        got = opt_update(gd, sd, pd)
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    assert all(t.device.type == "cuda" for t in tree_leaves(p_card))
+
+
+@pytest.mark.cuda
+def test_grasp_pipelined_equals_sequential_on_card(nccl_group):
+    """Both schedules of the GRASP step on the card, 3 steps, bit for bit
+    under deterministic algorithms."""
+    import os
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.nn import gnn
+    from repro_torch.train import optimizer
+    from repro_torch.train.tree import tree_leaves
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    spec, cfg, batch, params = grasp_case(seed=1)
+    opt_init, opt_update = optimizer.make(optimizer.OptConfig(name="adamw", lr=1e-3))
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for overlap in (False, True):
+            step = coll.make_grasp_gin_step(spec, cfg, 16, cfg.d_out, None, opt_update,
+                                            overlap=overlap, device="cuda")
+            p = gnn.to_device(params, torch.device("cuda"))
+            s = opt_init(p)
+            losses = []
+            for _ in range(3):
+                p, s, m = step(p, s, batch)
+                losses.append(m["loss"])
+            out[overlap] = (losses, p, s)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(tree_leaves(out[False]), tree_leaves(out[True])):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_compressed_psum_on_card_matches_cpu(nccl_group):
+    """compressed_psum over the NCCL rank against the gloo rank on the CPU,
+    two rounds with the error carried: mean and error bit for bit."""
+    from repro_torch.train import compression
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    rng = np.random.default_rng(4)
+    grads = {"w": torch.from_numpy((rng.standard_normal((64, 32)) * 3).astype(np.float32)),
+             "layers": [{"b": torch.from_numpy(rng.standard_normal(7).astype(np.float32))}],
+             "eps": torch.tensor(0.37)}
+    out = {}
+    for label, dev, group in (("cpu", torch.device("cpu"), nccl_group),
+                              ("card", torch.device("cuda"), None)):
+        g = tree_map(lambda t: t.to(dev), grads)
+        err = compression.init_error(g)
+        rounds = []
+        for _ in range(2):
+            mean, err = compression.compressed_psum(g, err, group)
+            rounds.append((mean, err))
+        out[label] = rounds
+    for a, b in zip(tree_leaves(out["card"]), tree_leaves(out["cpu"])):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)

@@ -515,8 +515,11 @@ def test_gnn_train_step_matches_the_jax_composition(arch):
 
 
 def test_grasp_gin_cell_waits_for_dist():
+    """gin + grasp on ogb_products is the GRASP-partitioned cell: it waits
+    for a torch.distributed process group (tests/test_torch_dist.py builds
+    and trains it over one) and raises without one."""
     gin = t_cfgs.get_arch("gin-tu")
-    with pytest.raises(NotImplementedError, match="dist"):
+    with pytest.raises(RuntimeError, match="process group"):
         t_steps.gnn_train_step(gin, t_cfgs.GNN_SHAPES["ogb_products"], device="cpu")
     # without GRASP, or on another shape, the plain step is built
     t_steps.gnn_train_step(dataclasses.replace(gin, grasp=False),

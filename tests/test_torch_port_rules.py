@@ -42,7 +42,8 @@ FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
     ROOT / "scripts" / "torch_profile_pagerank.py", ROOT / "scripts" / "k1_d1_layouts.py",
     ROOT / "scripts" / "torch_profile_graph_suite.py", ROOT / "scripts" / "torch_profile_gnn_serve.py",
     ROOT / "scripts" / "k1_d1_layouts.cu", ROOT / "scripts" / "k2_k3_times.py",
-    ROOT / "scripts" / "k3_layouts.py", ROOT / "scripts" / "k3_layouts.cu"],
+    ROOT / "scripts" / "k3_layouts.py", ROOT / "scripts" / "k3_layouts.cu",
+    ROOT / "scripts" / "index_add_pad_runs.py", ROOT / "scripts" / "grasp_step_noise.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
     text = path.read_text()
@@ -181,6 +182,33 @@ def test_training_entry_points_without_device_raise_without_cuda(monkeypatch):
     out = trainer.fit(lambda step: {"x": np.ones(3, np.float32)})
     assert out["params"]["w"].device.type == "cpu" and int(out["opt"]["step"]) == 2
     assert convert.opt_state_from_numpy(state, "cpu")["step"].dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="dist"):
-        steps.gnn_train_step(base.get_arch("gin-tu"), base.GNN_SHAPES["ogb_products"],
-                             device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        steps.gnn_train_step(base.get_arch("gin-tu"), base.GNN_SHAPES["ogb_products"])
+
+
+def test_grasp_train_step_without_process_group_raises(monkeypatch):
+    """The GRASP branch of gnn_train_step (gin + grasp on ogb_products), the
+    GRASP step builder and the compressed all-reduce raise without an
+    initialised process group: none starts one, none drifts to the CPU or
+    to an unpartitioned step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import base
+    from repro_torch.dist import collectives
+    from repro_torch.launch import steps
+    from repro_torch.train import compression, optimizer
+
+    assert not dist.is_initialized()
+    gin, products = base.get_arch("gin-tu"), base.GNN_SHAPES["ogb_products"]
+    spec = collectives.partition_spec_for(products.n_nodes, products.n_edges, 1)
+    update = optimizer.make(optimizer.OptConfig())[1]
+    for build in (lambda: steps.gnn_train_step(gin, products, device="cpu"),
+                  lambda: collectives.make_grasp_gin_step(spec, gin, 100, 47, None, update,
+                                                          device="cpu"),
+                  lambda: compression.compressed_psum({"w": torch.ones(2)}, {"w": torch.zeros(2)})):
+        with pytest.raises(RuntimeError, match="no torch.distributed process group"):
+            build()
+    assert not dist.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        steps.gnn_train_step(gin, products)
