@@ -93,15 +93,37 @@ Phases, each of which must pass:
      and the sequential schedule, 3 steps each, bit for bit under
      deterministic algorithms on ``lj`` at scale 16; (c) one step on the
      quickstart's ``tw`` graph on the card against a gloo rank on the CPU
-     (phase 11's GIN tolerances).
+     (phase 11's GIN tolerances);
+ 13. the gateway and seeded chaos (repro_torch.gateway, repro_torch.chaos)
+     over MIND's serve engine on the card at full width (phase 7's
+     parameters, phase 8's 128 MiB cache, batches of up to 32), run after
+     the other paths' kernel timing: (a) 16 client threads send 2,048
+     Zipf-1.1 requests (50-item histories, 16 candidates) to a supervised
+     gateway with the breaker on: all served, each response the engine's
+     output bit for bit and the dense serve_scores within 1e-5, K1 once per
+     lookup with hot references and bit for bit on one batch's hot ids;
+     it prints requests/s, client and server p50/p99, the hit rate, the
+     per-batch split and peak memory, then the card's busy share over 512
+     more requests under torch.profiler; (b) benchmarks/chaos_smoke.py's
+     fault schedule (seed 42) from 4 workers: every request one outcome,
+     admitted = completed + shed + failed, a restart per injected pump
+     crash, a post-reset retry replayed from the dedupe, every failure an
+     injected fault; (c) the breaker: 3 requests pay a 500, the rest a 503
+     without a forward, and a probe after the cooldown closes it with (a)'s
+     scores; (d) (b)'s schedule twice with one worker: equal injection logs
+     and outcomes; (e) a warm restart from the drained snapshot rebuilds
+     the cache's blocks on the card, and its probe hit rate is at most 1
+     point below the pre-restart rate and at least a cold start's; (f)
+     ``python -m repro_torch.launch.serve --engine recsys --gateway`` in a
+     subprocess serves one request on the card, drains on SIGINT, exits 0.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
 time by torch.profiler, and host microseconds per call. K1's and K3's are
 those of the mode the path launches: two-tier where it goes through
 ops.hot_gather or ops.hot_bag (the quickstart, PageRank, serve_scores, the
-bag, real-size PageRank-Delta), hot part in the serve caches (MIND's and
-GIN's). Each phase prints its wall time.
+bag, real-size PageRank-Delta), hot part in the serve caches (MIND's,
+GIN's and the gateway's). Each phase prints its wall time.
 Then one JSON line of per-kernel numbers, the card line again, and the
 final {"ok": true, ...} line. It exits non-zero, printing no result, when
 CUDA is unavailable or the repository's sources are missing.
@@ -130,6 +152,29 @@ MIND_REQUESTS = 8192
 MIND_MAX_BATCH = 512
 MIND_CACHE_BYTES = 128 << 20
 RETRIEVAL_HOT_ROWS = 1 << 18
+# the gateway over MIND's serve engine (phase 13): (a) 16 client threads in a
+# closed loop send 2,048 requests of a 50-item Zipf-1.1 history and 16
+# Zipf-1.1 candidates to a supervised gateway with the breaker on, batches of
+# up to 32 through phase 8's 128 MiB cache; then 512 more under the profiler
+GW_REQUESTS = 2048
+GW_CLIENTS = 16
+GW_CANDIDATES = 16
+GW_MAX_BATCH = 32
+GW_MAX_QUEUE = 256
+GW_BUSY_REQUESTS = 512
+GW_JOIN_S = 120.0
+# (b)-(d): benchmarks/chaos_smoke.py's fault schedule, supervisor and breaker
+# (copied: this script imports nothing of the JAX package), 192 requests
+CHAOS_REQUESTS = 192
+CHAOS_WORKERS = 4
+CHAOS_FAULTS = dict(seed=42, forward_error_rate=0.06, latency_spike_rate=0.05,
+                    latency_spike_s=0.02, pump_crash_rate=0.04, conn_reset_rate=0.08)
+CHAOS_SUPERVISOR = dict(check_interval_s=0.005, wedge_timeout_s=10.0, backoff_s=0.01,
+                        backoff_cap_s=0.05, crash_loop_threshold=10_000)
+CHAOS_BREAKER = {"failure_threshold": 3, "cooldown_s": 0.1}
+BREAKER_REQUESTS, BREAKER_THRESHOLD, BREAKER_COOLDOWN_S = 10, 3, 0.2
+# (e): warm the cache on 512 requests, then probe its hit rate on 256
+WARM_REQUESTS, PROBE_REQUESTS = 512, 256
 # GIN served through the GRASP feature cache over the lj graph of phase 5
 # (ogb_products' stand-in), with ogb_products' d_feat and minibatch_lg's
 # fanout and 1,024 seeds a batch; a 256 MiB cache (16% of the table)
@@ -873,14 +918,19 @@ def check_mind_dense(dev, params) -> tuple[list, int, float]:
 
 
 class StreamProbe:
-    """Records, for one run of ``run_recsys_stream``, each cache lookup
-    (host ms, whether it had hot references, its ids) and each forward
-    (ms, payloads and scores of the first). Lookups end in a
-    synchronisation, so the forward's remainder is the routed math."""
+    """Records, for the recsys engines of one run, each cache lookup (host
+    ms, the calling thread's CPU ms, whether it had hot references, its
+    ids) and each forward (ms, and its payloads and scores in
+    ``batches``). Lookups end in a synchronisation, so the forward's
+    remainder is the routed math."""
 
     def __init__(self):
-        self.lookup_ms, self.forward_ms, self.lookups = [], [], []
-        self.first = None
+        self.lookup_ms, self.forward_ms, self.lookups, self.batches = [], [], [], []
+        self.lookup_cpu_ms = []
+
+    @property
+    def first(self):
+        return self.batches[0]
 
     def __enter__(self):
         import numpy as np
@@ -894,10 +944,11 @@ class StreamProbe:
         probe = self
 
         def timed_lookup(cache, ids):
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), time.thread_time()
             out, stats = lookup(cache, ids)
             torch.cuda.synchronize()
             probe.lookup_ms.append((time.perf_counter() - t0) * 1e3)
+            probe.lookup_cpu_ms.append((time.thread_time() - c0) * 1e3)
             probe.lookups.append((np.asarray(ids), stats.hot_hits > 0))
             return out, stats
 
@@ -905,8 +956,7 @@ class StreamProbe:
             t0 = time.perf_counter()
             out = forward(engine, payloads)
             probe.forward_ms.append((time.perf_counter() - t0) * 1e3)
-            if probe.first is None:
-                probe.first = (payloads, out)
+            probe.batches.append((payloads, out))
             return out
 
         EmbeddingCache.lookup, RecsysServeEngine.forward = timed_lookup, timed_forward
@@ -2093,6 +2143,534 @@ def run_grasp_training(dev, g2, qs_graph) -> None:
         fail(f"GRASP training launched a kernel: {launched}")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the gateway and seeded chaos over MIND's serve engine
+# ---------------------------------------------------------------------------
+def gateway_requests(cfg, n: int, seed: int) -> list:
+    """``n`` (history, candidates) pairs drawn from ``seed``: a full
+    Zipf-1.1 history and GW_CANDIDATES Zipf-1.1 candidates each."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import zipf_ids
+
+    rng = np.random.default_rng(seed)
+    return [(zipf_ids(rng, (cfg.hist_len,), cfg.n_items, a=1.1),
+             zipf_ids(rng, (GW_CANDIDATES,), cfg.n_items, a=1.1)) for _ in range(n)]
+
+
+def mind_engine(dev, params, cfg):
+    """MIND's serve engine on the card over phase 8's cache (128 MiB, GRASP
+    pinning half) behind a (32, 256) batcher, warmed up."""
+    from repro_torch.serve.cache import CacheConfig
+    from repro_torch.serve.engine import RecsysServeEngine
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    engine = RecsysServeEngine(params, cfg, CacheConfig(MIND_CACHE_BYTES, 0.5, "rrpv"),
+                               SchedulerConfig(max_batch=GW_MAX_BATCH, max_queue=GW_MAX_QUEUE),
+                               device=dev)
+    engine.warmup(candidates=GW_CANDIDATES)
+    return engine
+
+
+def drive(client, reqs: list, workers: int) -> tuple[list, list, list, list]:
+    """Send ``reqs`` through ``client.score`` from ``workers`` threads in a
+    closed loop. Returns, in request order, each outcome ("done" or the
+    error's kind), scores (None unless done), client ms and error text.
+    A client thread still running after GW_JOIN_S fails the script."""
+    import threading
+
+    from repro_torch.gateway import GatewayError
+
+    n = len(reqs)
+    outcomes, scores, ms, errors = [None] * n, [None] * n, [None] * n, [None] * n
+    lock, it = threading.Lock(), iter(range(n))
+
+    def worker():
+        while True:
+            with lock:
+                i = next(it, None)
+            if i is None:
+                return
+            t0 = time.perf_counter()
+            try:
+                scores[i] = client.score(*reqs[i], timeout_s=GW_JOIN_S)
+                outcomes[i] = "done"
+            except GatewayError as e:
+                outcomes[i], errors[i] = e.kind, f"{type(e).__name__}: {e}"
+            except Exception as e:  # noqa: BLE001 — recorded; the caller fails on it
+                outcomes[i], errors[i] = "error", repr(e)
+            ms[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=worker, daemon=True) for _ in range(workers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(GW_JOIN_S)
+    hung = sum(t.is_alive() for t in threads)
+    if hung:
+        fail(f"gateway: {hung} client thread(s) still waiting after {GW_JOIN_S} s")
+    return outcomes, scores, ms, errors
+
+
+def all_served(label: str, outcomes: list, errors: list) -> None:
+    """Fail with the first error's text unless every request was served."""
+    bad = [i for i, o in enumerate(outcomes) if o != "done"]
+    if bad:
+        fail(f"{label}: {len(bad)} of {len(outcomes)} requests not served; request "
+             f"{bad[0]}: {errors[bad[0]]}")
+
+
+def gateway_healthy(dev, params, cfg) -> tuple:
+    """Phase 13 (a): MIND at full width behind a supervised gateway with the
+    breaker on, 16 client threads in a closed loop. Every request is
+    served; each response is the engine's output for it bit for bit (the
+    wire carries float32 scores exactly) and the dense serve_scores on the
+    card within 1e-5; K1's hot-part mode launches once per lookup with hot
+    references, bit for bit on one batch's hot ids. Returns K1's entry for
+    the path "mind gateway", the engine, the requests and their scores."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.gateway import EnginePump, GatewayClient, GatewayServer
+    from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
+    from repro_torch.kernels.hot_gather.hot_gather import (
+        hot_gather_hot_part,
+        hot_gather_segment_sum,
+    )
+    from repro_torch.nn import recsys
+
+    engine = mind_engine(dev, params, cfg)
+    reqs = gateway_requests(cfg, GW_REQUESTS, seed=13)
+    counters = (hot_gather_hot_part, hot_gather_segment_sum, hot_bag_hot_part)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    server = GatewayServer({"score": EnginePump(engine, "score")}).start()
+    try:
+        client = GatewayClient(server.url, timeout_s=GW_JOIN_S, retries=0)
+        with StreamProbe() as probe:
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            outcomes, served, ms, errors = drive(client, reqs, GW_CLIENTS)
+            wall = time.perf_counter() - t0
+            launched = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated(dev)
+        health = client.health()
+    finally:
+        server.stop()
+    all_served("gateway (a)", outcomes, errors)
+    snap = engine.metrics.snapshot()
+    c = snap["counters"]
+    if c.get("completed") != GW_REQUESTS or any(c.get(k, 0) for k in ("failed", "shed",
+                                                                      "rejected")):
+        fail(f"gateway (a): server counters {c}")
+    if health["status"] != "ok":
+        fail(f"gateway (a): /healthz {health}")
+
+    # the wire: each response is the engine's own output for its request
+    produced = {}
+    for payloads, out in probe.batches:
+        for pl, row in zip(payloads, out):
+            produced.setdefault((pl["hist"].tobytes(), pl["candidates"].tobytes()), []).append(row)
+    for i, (hist, cand) in enumerate(reqs):
+        rows = produced.get((hist.tobytes(), cand.tobytes()), [])
+        if not any(np.array_equal(served[i], row) for row in rows):
+            fail(f"gateway (a): request {i}'s scores are not the engine's output bit for bit")
+    got = np.stack(served)
+    dense = np.concatenate([recsys.serve_scores(params, cfg, {
+        "hist": np.stack([h for h, _ in reqs[k:k + 512]]),
+        "hist_mask": np.ones((len(reqs[k:k + 512]), cfg.hist_len), bool),
+        "candidates": np.stack([q for _, q in reqs[k:k + 512]]),
+    }, impl="plain").cpu().numpy() for k in range(0, GW_REQUESTS, 512)])
+    diff = float(np.abs(got - dense).max())
+    if got.shape != (GW_REQUESTS, GW_CANDIDATES) or not np.isfinite(got).all():
+        fail(f"gateway (a): not finite scores of shape ({GW_REQUESTS}, {GW_CANDIDATES})")
+    if not np.allclose(got, dense, rtol=1e-5, atol=1e-5):
+        fail(f"gateway (a): served scores differ from the dense serve_scores by {diff:.3e}")
+
+    hot_lookups = sum(hit for _, hit in probe.lookups)
+    k1 = launched["hot_gather_hot_part"]
+    if hot_lookups < 1 or k1 != hot_lookups:
+        fail(f"gateway (a): {k1} K1 launches for {hot_lookups} lookups with hot references")
+
+    sizes = [len(pl) for pl, _ in probe.batches]
+    lookup = [a + b for a, b in zip(probe.lookup_ms[::2], probe.lookup_ms[1::2])]
+    lookup_cpu = [a + b for a, b in zip(probe.lookup_cpu_ms[::2], probe.lookup_cpu_ms[1::2])]
+    routed = [f - lk for f, lk in zip(probe.forward_ms, lookup)]
+    e2e, wait = snap["latency"]["e2e"], snap["latency"]["queue_wait"]
+    p50, p99 = (float(np.percentile(ms, q)) for q in (50, 99))
+    fwd = statistics.median(probe.forward_ms)
+    print(f"gateway (a): {GW_REQUESTS} requests from {GW_CLIENTS} clients in {wall:.3f} s, "
+          f"{GW_REQUESTS / wall:.1f} requests/s; client p50 {p50:.3f} ms p99 {p99:.3f} ms; "
+          f"server e2e p50 {e2e['p50_s'] * 1e3:.3f} ms p99 {e2e['p99_s'] * 1e3:.3f} ms, queue "
+          f"wait p50 {wait['p50_s'] * 1e3:.3f} ms; hit rate {snap['hit_rate']:.6f} (hot "
+          f"{c.get('hot_hits', 0)} cold {c.get('cold_hits', 0)} misses {c['misses']}); "
+          f"{len(sizes)} batches, mean size {statistics.mean(sizes):.2f}, largest {max(sizes)}")
+    print(f"gateway (a) per batch (medians): cache lookups (host, both) "
+          f"{statistics.median(lookup):.3f} ms (the pump thread on the CPU "
+          f"{statistics.median(lookup_cpu):.3f} ms of it), routed forward (card) "
+          f"{statistics.median(routed):.3f} ms, forward total {fwd:.3f} ms; HTTP, JSON, queue "
+          f"and pump: client p50 less the forward {p50 - fwd:.3f} ms; served scores vs dense "
+          f"max abs diff {diff:.3e}, all {GW_REQUESTS} bit for bit the engine's; launches "
+          f"{launched}; peak device memory {peak / 2**30:.3f} GiB")
+
+    # K1 at this path's shapes: the history and candidate lookups of the
+    # batch of median size
+    j = sorted(range(len(sizes)), key=lambda b: sizes[b])[len(sizes) // 2]
+    hot_size, items = engine.cache.hot_size, params["items"]
+    mix, counts, err = [], [], 0.0
+    for k, kind in enumerate(("history", "candidates")):
+        ids = probe.lookups[2 * j + k][0]
+        idx = torch.as_tensor(np.where(ids < hot_size, ids, -1).astype(np.int32)).to(dev)
+        err = max(err, check_k1_exact(f"mind gateway {kind} (batch of {sizes[j]})",
+                                      items[:hot_size], idx))
+        mix.append((items, hot_size, idx))
+        counts.append(sum(hit for _, hit in probe.lookups[k::2]))
+    entry = k1_numbers("mind gateway", mix, counts, err, two_tier=False)
+
+    # the card's busy share over a window of 512 more requests, profiled
+    busy_reqs = gateway_requests(cfg, GW_BUSY_REQUESTS, seed=14)
+    server = GatewayServer({"score": EnginePump(engine, "score")}).start()
+    try:
+        client = GatewayClient(server.url, timeout_s=GW_JOIN_S, retries=0)
+        window = []
+        busy, wall_ms = profile_busy(lambda: window.append(drive(client, busy_reqs, GW_CLIENTS)))
+    finally:
+        server.stop()
+    all_served("gateway (a) profiled window", window[0][0], window[0][3])
+    share = f"{busy / wall_ms:.4f}" if busy > 0 else "not measured"
+    print(f"gateway (a) busy share under torch.profiler: {GW_BUSY_REQUESTS} requests in "
+          f"{wall_ms:.3f} ms, card busy {busy:.3f} ms: {share} "
+          f"({GW_BUSY_REQUESTS / wall_ms * 1e3:.1f} requests/s while profiled)")
+    return entry, engine, reqs, served
+
+
+class Breakable:
+    """Engine wrapper with a persistent-failure switch: while ``failing``,
+    every forward raises an InjectedFault, a fault that does not go away
+    on its own (benchmarks/chaos_smoke.py's ``_Breakable``)."""
+
+    def __init__(self, engine) -> None:
+        self._engine = engine
+        self.batcher = engine.batcher
+        self.failing = False
+        self.forwards = 0
+
+    def forward(self, payloads):
+        from repro_torch.chaos import InjectedFault
+
+        self.forwards += 1
+        if self.failing:
+            raise InjectedFault("chaos: persistent engine fault")
+        return self._engine.forward(payloads)
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+
+def chaos_run(engine, cfg, workers: int, breaker: bool) -> dict:
+    """One supervised run of CHAOS_REQUESTS requests through ChaosEngine
+    (CHAOS_FAULTS) and a ChaosClient with post-execution resets
+    (benchmarks/chaos_smoke.py's ``_run_workload``). Returns the outcomes
+    and errors in request order, the injection log, the supervisor's,
+    dedupe's and client's stats, the engine's counters over the run, and
+    the exception of every batch the batcher failed."""
+    from repro_torch.chaos import ChaosClient, ChaosEngine, FaultSchedule, FaultSpec
+    from repro_torch.gateway import EnginePump, GatewayServer
+
+    schedule = FaultSchedule(FaultSpec(**CHAOS_FAULTS))
+    batcher, failures = engine.batcher, []
+
+    def recording_fail(batch, exc, _fail=batcher.fail):
+        if batch:   # close() fails out the (empty) queue too
+            failures.append(exc)
+        _fail(batch, exc)
+
+    batcher.fail = recording_fail
+    before = dict(engine.metrics.counters)
+    server = GatewayServer({"score": EnginePump(ChaosEngine(engine, schedule), "score")},
+                           supervisor_config=CHAOS_SUPERVISOR, breaker=breaker,
+                           breaker_config=CHAOS_BREAKER).start()
+    try:
+        client = ChaosClient(server.url, schedule, reset_mode="post", timeout_s=20.0,
+                             retries=8, backoff_s=0.02, backoff_cap_s=0.2)
+        outcomes, _, _, errors = drive(client, gateway_requests(cfg, CHAOS_REQUESTS, seed=3),
+                                       workers)
+        supervisor, dedupe = server.supervisors["score"].stats(), server.dedupe.stats()
+    finally:
+        server.stop()
+        del batcher.fail
+    after = engine.metrics.counters
+    return {"outcomes": outcomes, "errors": errors, "log": schedule.log.entries(),
+            "injected": schedule.log.summary(), "supervisor": supervisor, "dedupe": dedupe,
+            "client": dict(client.stats), "failures": failures,
+            "counters": {k: after.get(k, 0) - before.get(k, 0) for k in after}}
+
+
+def only_injected(label: str, r: dict) -> None:
+    """Fail with its text on any failure that is not an injected fault:
+    a batch failed with another exception, or a request's error."""
+    from repro_torch.chaos import InjectedFault
+
+    for exc in r["failures"]:
+        if not isinstance(exc, InjectedFault):
+            fail(f"{label}: a batch failed with {type(exc).__name__}: {exc}")
+    for o, e in zip(r["outcomes"], r["errors"]):
+        if o == "failed" and "chaos:" not in e:
+            fail(f"{label}: a request failed without an injected fault: {e}")
+        if o in ("timeout", "error"):
+            fail(f"{label}: a request ended in {o}: {e}")
+
+
+def gateway_faults(engine, cfg) -> None:
+    """Phase 13 (b): chaos_smoke's fault schedule over the card's engine,
+    4 workers: every request reaches one outcome, admitted = completed +
+    shed + failed, the supervisor restarted every injected pump crash, a
+    post-reset retry was replayed from the dedupe, and every failure is an
+    injected fault."""
+    r = chaos_run(engine, cfg, CHAOS_WORKERS, breaker=True)
+    only_injected("gateway (b)", r)
+    o = {k: r["outcomes"].count(k) for k in sorted(set(r["outcomes"]))}
+    inj, c, sup = r["injected"], r["counters"], r["supervisor"]
+    print(f"gateway (b): {CHAOS_REQUESTS} requests from {CHAOS_WORKERS} workers: {o}; "
+          f"injected {inj}; supervisor {sup}; dedupe {r['dedupe']}; client {r['client']}; "
+          f"server admitted {c.get('admitted', 0)} completed {c.get('completed', 0)} shed "
+          f"{c.get('shed', 0)} failed {c.get('failed', 0)}")
+    if sum(o.values()) != CHAOS_REQUESTS or None in r["outcomes"]:
+        fail(f"gateway (b): outcomes {o} for {CHAOS_REQUESTS} requests")
+    if c.get("admitted", 0) != c.get("completed", 0) + c.get("shed", 0) + c.get("failed", 0):
+        fail(f"gateway (b): admitted != completed + shed + failed: {c}")
+    if not inj.get("pump_crash") or sup["restarts"] != inj["pump_crash"] or sup["wedges"]:
+        fail(f"gateway (b): supervisor {sup} for {inj.get('pump_crash', 0)} injected crashes")
+    if not inj.get("forward_error") or o.get("failed", 0) > CHAOS_WORKERS * inj["forward_error"]:
+        fail(f"gateway (b): {o.get('failed', 0)} failed for {inj.get('forward_error', 0)} "
+             f"injected forward errors")
+    if o.get("done", 0) <= CHAOS_REQUESTS // 2:
+        fail(f"gateway (b): only {o.get('done', 0)} of {CHAOS_REQUESTS} served")
+    if not inj.get("conn_reset") or not r["client"]["retries_conn"] or r["dedupe"]["replays"] < 1:
+        fail(f"gateway (b): no post-reset retry was replayed from the dedupe: {r['dedupe']}")
+
+
+def gateway_breaker(engine, cfg, reqs: list, served: list) -> None:
+    """Phase 13 (c): with failure_threshold 3 and a persistently failing
+    wrapper, 3 requests get a 500 and the rest a 503 without a forward;
+    after the cooldown a probe closes the breaker, and its score is (a)'s
+    for the same request (1e-5: another batch)."""
+    import numpy as np
+
+    from repro_torch.gateway import EnginePump, GatewayClient, GatewayError, GatewayServer
+
+    wrapped = Breakable(engine)
+    server = GatewayServer({"score": EnginePump(wrapped, "score")},
+                           breaker_config={"failure_threshold": BREAKER_THRESHOLD,
+                                           "cooldown_s": BREAKER_COOLDOWN_S}).start()
+    try:
+        client = GatewayClient(server.url, timeout_s=GW_JOIN_S, retries=0)
+        wrapped.failing = True
+        tail = []
+        for hist, cand in reqs[1:BREAKER_REQUESTS + 1]:
+            try:
+                client.score(hist, cand, timeout_s=GW_JOIN_S)
+                tail.append("done")
+            except GatewayError as e:
+                tail.append(e.kind)
+        forwards = wrapped.forwards
+        opened = server.breakers["score"].stats()
+        wrapped.failing = False
+        time.sleep(BREAKER_COOLDOWN_S + 0.05)
+        probe = client.score(*reqs[0], timeout_s=GW_JOIN_S)
+        closed = server.breakers["score"].stats()
+    finally:
+        server.stop()
+    want = ["failed"] * BREAKER_THRESHOLD + ["unavailable"] * (BREAKER_REQUESTS - BREAKER_THRESHOLD)
+    diff = float(np.abs(probe - served[0]).max())
+    print(f"gateway (c): persistent fault: {tail}, {forwards} forwards; breaker open {opened}, "
+          f"after the probe {closed}; probe vs (a) max abs diff {diff:.3e} "
+          f"(bit for bit: {np.array_equal(probe, served[0])})")
+    if tail != want or forwards != BREAKER_THRESHOLD:
+        fail(f"gateway (c): {tail} with {forwards} forwards, want {want} with "
+             f"{BREAKER_THRESHOLD}")
+    if opened["state"] != "open" or opened["opened"] != 1 or closed["state"] != "closed":
+        fail(f"gateway (c): breaker {opened} then {closed}")
+    if not np.isfinite(probe).all() or not np.allclose(probe, served[0], rtol=1e-5, atol=1e-5):
+        fail(f"gateway (c): the probe's scores differ from (a)'s by {diff:.3e}")
+
+
+def gateway_determinism(engine, cfg) -> None:
+    """Phase 13 (d): (b)'s schedule replayed twice with one worker and no
+    breaker: equal injection logs and outcome sequences."""
+    runs = [chaos_run(engine, cfg, 1, breaker=False) for _ in range(2)]
+    for k, r in enumerate(runs):
+        only_injected(f"gateway (d) run {k}", r)
+    a, b = runs
+    print(f"gateway (d): two runs of one worker: {len(a['log'])} and {len(b['log'])} "
+          f"injections ({a['injected']}); outcomes "
+          f"{ {k: a['outcomes'].count(k) for k in sorted(set(a['outcomes']))} }; "
+          f"restarts {a['supervisor']['restarts']} and {b['supervisor']['restarts']}")
+    if not a["log"] or a["log"] != b["log"]:
+        first = next((x for x in zip(a["log"], b["log"]) if x[0] != x[1]), None)
+        fail(f"gateway (d): the injection logs differ ({len(a['log'])} vs {len(b['log'])}; "
+             f"first difference {first})")
+    if a["outcomes"] != b["outcomes"]:
+        fail("gateway (d): the outcome sequences differ")
+
+
+def probe_hit_rate(engine, client, reqs: list) -> float:
+    """Hit rate of ``reqs`` sent one at a time, from the counters' deltas."""
+    keys = ("hot_hits", "cold_hits", "misses")
+    before = [engine.metrics.counters.get(k, 0) for k in keys]
+    outcomes, _, _, errors = drive(client, reqs, 1)
+    all_served("gateway (e)", outcomes, errors)
+    hot, cold, miss = (engine.metrics.counters.get(k, 0) - b for k, b in zip(keys, before))
+    return (hot + cold) / (hot + cold + miss)
+
+
+def gateway_warm_restart(dev, params, cfg) -> None:
+    """Phase 13 (e): a gateway with a snapshot directory warms the card's
+    cache on 512 requests, measures a 256-request probe's hit rate and
+    drains (the snapshot is written); a fresh engine and gateway restore
+    it, with the pinned and cold blocks on the card equal to the table's
+    rows. The probe's hit rate is at most 1 point below the pre-restart
+    rate (benchmarks/chaos_smoke.py's check) and at least a cold start's."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.gateway import EnginePump, GatewayClient, GatewayServer
+
+    snapdir = os.path.join(ROOT, "build", f"gateway_snapshots_{os.getpid()}")
+    shutil.rmtree(snapdir, ignore_errors=True)
+    warm = gateway_requests(cfg, WARM_REQUESTS, seed=11)
+    probe = gateway_requests(cfg, PROBE_REQUESTS, seed=12)
+    rates = {}
+    for label in ("pre", "post", "cold"):
+        engine = mind_engine(dev, params, cfg)
+        server = GatewayServer({"score": EnginePump(engine, "score")},
+                               snapshot_dir=None if label == "cold" else snapdir)
+        server.start()
+        try:
+            client = GatewayClient(server.url, timeout_s=GW_JOIN_S, retries=0)
+            restores = engine.metrics.counters.get("snapshot_restores", 0)
+            if label == "post":
+                cache = engine.cache
+                if cache.snapshot() != drained:
+                    fail("gateway (e): the restored cache's state is not the drained one's")
+                resident = np.flatnonzero(cache._slot_id >= 0)
+                ids = torch.as_tensor(cache._slot_id[resident]).to(dev)
+                cold = cache.cold_rows_device()
+                if (restores != 1 or cold.device != dev or cache._hot_block.device != dev
+                        or not torch.equal(cold[torch.as_tensor(resident).to(dev)],
+                                           params["items"][ids])
+                        or not torch.equal(cache._hot_block, params["items"][:cache.hot_size])):
+                    fail(f"gateway (e): the restore ({restores} restores) did not rebuild the "
+                         f"cache's blocks on {dev} from the table")
+                print(f"gateway (e): restored {resident.size} resident cold rows and the "
+                      f"{cache.hot_size} pinned rows on {cold.device}, equal to the table's")
+            elif restores:
+                fail(f"gateway (e) {label}: restored a snapshot")
+            if label == "pre":
+                outcomes, _, _, errors = drive(client, warm, 1)
+                all_served("gateway (e) warm-up", outcomes, errors)
+            rates[label] = probe_hit_rate(engine, client, probe)
+        finally:
+            server.stop()
+        if label == "pre":
+            path = os.path.join(snapdir, "score.cache.json")
+            if not os.path.exists(path):
+                fail("gateway (e): the drain wrote no snapshot")
+            drained = engine.cache.snapshot()
+        del engine, server
+    shutil.rmtree(snapdir, ignore_errors=True)
+    print(f"gateway (e): probe hit rate {rates['pre']:.6f} before the restart, "
+          f"{rates['post']:.6f} restored ({(rates['post'] - rates['pre']) * 100:+.3f} pt), "
+          f"{rates['cold']:.6f} cold-started")
+    if rates["post"] < rates["pre"] - 0.01 or rates["post"] < rates["cold"]:
+        fail(f"gateway (e): restored hit rate {rates['post']} against {rates['pre']} before "
+             f"and {rates['cold']} cold")
+
+
+def gateway_cli(dev) -> None:
+    """Phase 13 (f): ``python -m repro_torch.launch.serve --engine recsys
+    --gateway 127.0.0.1:0`` in a subprocess on the card (the reduced MIND:
+    ``--smoke`` cannot be turned off) answers one /v1/score, drains on
+    SIGINT and exits 0."""
+    import queue
+    import re
+    import signal
+    import threading
+
+    import numpy as np
+
+    from repro_torch.gateway import GatewayClient
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", "--engine",
+                             "recsys", "--gateway", "127.0.0.1:0"], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    seen = []
+    try:
+        url, deadline = None, time.monotonic() + 300.0
+        while url is None:
+            try:
+                line = lines.get(timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                fail(f"gateway (f): no [gateway] line within 300 s: {''.join(seen)}")
+            if line is None:
+                fail(f"gateway (f): the CLI exited {proc.wait()} before serving: {''.join(seen)}")
+            seen.append(line)
+            m = re.search(r"\[gateway\] .* on (http://\S+) ", line)
+            url = m and m.group(1)
+        if f"; {dev.type}" not in seen[-1]:
+            fail(f"gateway (f): the CLI does not serve on the card: {seen[-1]}")
+        client = GatewayClient(url, timeout_s=GW_JOIN_S, retries=0)
+        scores = client.score([1, 2, 3], [4, 5], timeout_s=GW_JOIN_S)
+        health = client.health()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60.0)
+        reader.join(10.0)
+        while not lines.empty():
+            seen.append(lines.get_nowait() or "")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10.0)
+    out = "".join(seen)
+    print(f"gateway (f): the CLI served {scores.tolist()} on {url} (/healthz "
+          f"{health['status']}), then exit {rc} on SIGINT; its output:\n{out.rstrip()}")
+    if scores.shape != (2,) or not np.isfinite(scores).all() or health["status"] != "ok":
+        fail(f"gateway (f): scores {scores}, /healthz {health}")
+    if rc != 0 or "[gateway] stopped: completed=1" not in out:
+        fail(f"gateway (f): exit {rc}: {out}")
+
+
+def run_gateway(dev, params) -> dict:
+    """Phase 13: the gateway and seeded chaos over MIND's serve engine at
+    full width, sub-phases (a)-(f). Returns K1's entry of (a)."""
+    from repro_torch.configs.base import get_arch
+
+    cfg = get_arch("mind")
+    entry, engine, reqs, served = phase("13a (gateway, healthy serving)", gateway_healthy, dev,
+                                        params, cfg)
+    phase("13b (gateway, faults)", gateway_faults, engine, cfg)
+    phase("13c (gateway, breaker)", gateway_breaker, engine, cfg, reqs, served)
+    phase("13d (gateway, determinism)", gateway_determinism, engine, cfg)
+    del engine
+    phase("13e (gateway, warm restart)", gateway_warm_restart, dev, params, cfg)
+    phase("13f (gateway, serve CLI)", gateway_cli, dev)
+    return entry
+
 
 def phase(label: str, fn, *args):
     """Run one phase and print its wall time."""
@@ -2190,6 +2768,11 @@ def main() -> int:
              replaces="src/repro/kernels/embedding_bag/embedding_bag.py:20",
              path="mind bag (serve_bulk)", **k3),
     ]
+    # the gateway after the other paths' kernel timing: its busy share is
+    # read under torch.profiler, as training's is
+    k1_gateway = phase("13 (the gateway and chaos over MIND serving)", run_gateway, dev, params)
+    kernels.insert(6, dict(name="hot_gather", route="cuda", source=source, replaces=k1_tpu,
+                           path="mind gateway", **k1_gateway))
     if any(k["launches"] < 1 for k in kernels):
         fail("a kernel's path did not launch it")
     # training runs after the kernels' timing: after its profiled fit,

@@ -127,6 +127,28 @@ def test_serving_entry_points_without_device_raise_without_cuda(monkeypatch):
     assert eng.cache.device.type == "cpu"
 
 
+def test_serve_gateway_without_device_raises_without_cuda(monkeypatch):
+    """The serve CLI's --gateway builds its engine on --device (default
+    cuda): without a card it raises devices.resolve's error before any
+    server starts, unless --device cpu; --engine lm raises with or without
+    the gateway (the LM stack is not ported yet)."""
+    import threading
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.launch import serve as serve_cli
+
+    threads = threading.active_count()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_cli.main(["--engine", "recsys", "--gateway", "127.0.0.1:0"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_cli.main(["--engine", "recsys", "--gateway", "127.0.0.1:0", "--device", "cuda:0"])
+    for argv in (["--engine", "lm", "--gateway", "127.0.0.1:0"],
+                 ["--engine", "lm", "--gateway", "127.0.0.1:0", "--device", "cpu"]):
+        with pytest.raises(NotImplementedError, match="LM stack"):
+            serve_cli.main(argv)
+    assert threading.active_count() == threads       # no server was started
+
+
 def test_kernel_wrappers_refuse_meta_tensors():
     from repro_torch.kernels.hot_gather import hot_gather, ops
 

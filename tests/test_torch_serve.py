@@ -546,7 +546,9 @@ def test_launch_serve_cli_recsys(tmp_path):
     assert json.loads(out.read_text())["counters"] == snap["counters"]
     want = j_cli.main(argv)
     assert snap["counters"] == want["counters"] and snap["config"] == want["config"]
+    # --gateway serves (tests/test_torch_gateway.py); the LM engine waits
+    # for its slice, with or without the gateway
     for argv2 in (["--engine", "lm", "--device", "cpu"],
-                  ["--engine", "recsys", "--gateway", "127.0.0.1:0", "--device", "cpu"]):
+                  ["--engine", "lm", "--gateway", "127.0.0.1:0", "--device", "cpu"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_cli.main(argv2)
