@@ -115,7 +115,34 @@ Phases, each of which must pass:
      the cache's blocks on the card, and its probe hit rate is at most 1
      point below the pre-restart rate and at least a cold start's; (f)
      ``python -m repro_torch.launch.serve --engine recsys --gateway`` in a
-     subprocess serves one request on the card, drains on SIGINT, exits 0.
+     subprocess serves one request on the card, drains on SIGINT, exits 0;
+ 14. LM serving (nn.transformer, serve.engine.LMServeEngine and lm_loop,
+     the serve CLI's --engine lm), which launches no kernel (the counts
+     stay 0), after phase 12 with its tensors gone: (a) minitron-8b at its
+     published width and depth (7,734,558,720 float32 parameters drawn on
+     the card): lm_loop(smoke=False) at the CLI's defaults (16 requests,
+     batches of 8, prefill 64, decode 32; tok/s, batch p50/p99), then
+     LMServeEngine(smoke=False) serving 16 queued requests, prefill and
+     decode-step ms by CUDA events beside the decode step's weight-traffic
+     bound, one batch's busy share and top kernels under torch.profiler,
+     peak memory; (b) prefill over 8 tokens and 4 decode steps against
+     forward's logits at full depth (tests/test_nn.py's
+     test_decode_matches_forward: rtol 0.06, atol 5e-2, or twice the
+     card's own floor: forward at other lengths, up to 0.13 on logits of
+     ~6); (c) its first 2 layers at full width on the card against the CPU
+     on 2 prompts of 64 tokens: prefill and 4 decode steps' logits within
+     2% of the largest CPU logit (tests/test_torch_lm.py's 2e-2 on logits
+     of up to 0.73), greedy tokens equal wherever the CPU's top-1/top-2
+     margin is clear of it; (d) prefill_32k cut to batch 1: one
+     sequence of 32,768 tokens (ms, peak memory, finite logits), and layer
+     0's chunked attention at 4,096 tokens against one chunk (1e-2); (e)
+     phi3.5-moe-42b-a6.6b at its published width, 4 of 32 layers: 8 x 64
+     tokens and 8 decode steps on the card, finite, then 2 layers card
+     against CPU as in (c) over the sequences both route alike, and layer
+     by layer on the CPU's hidden states over the tokens both route alike
+     (at least 90%); (f)
+     ``python -m repro_torch.launch.serve --engine lm`` on the card, then
+     with ``--gateway``: one /v1/generate, SIGINT, exit 0.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
@@ -217,6 +244,20 @@ GRASP_CHECK_HOT = 1024
 # magnitude), in the unpartitioned step as in the GRASP step
 # (scripts/grasp_step_noise.py); the loss comes out the same bits
 GRASP_REAL_LEAF_BOUND = 1e-3
+# phase 14: LM serving. minitron-8b at the serve CLI's defaults; phi3.5-MoE
+# cut to 4 of its 32 layers (float32 weights of all 32: 174 GB); the CPU
+# checks cut to 2 layers at full width (a CPU run of the whole depth would
+# take most of the phase's time)
+LM_ARCH = "minitron-8b"
+LM_REQUESTS, LM_BATCH, LM_PREFILL, LM_DECODE = 16, 8, 64, 32
+LM_MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+LM_MOE_LAYERS = 4
+LM_CPU_LAYERS = 2
+LM_TF_TOL = dict(rtol=0.06, atol=5e-2)     # tests/test_nn.py::test_decode_matches_forward
+# card vs CPU: tests/test_torch_lm.py holds logits of up to 0.73 to atol 2e-2
+# (2.7% of the largest); at full width they reach ~6 and the bfloat16
+# roundings scale with them, so the bound is 2% of the largest CPU logit
+LM_CPU_REL = 2e-2
 
 
 def card_line() -> str:
@@ -2592,23 +2633,22 @@ def gateway_warm_restart(dev, params, cfg) -> None:
              f"and {rates['cold']} cold")
 
 
-def gateway_cli(dev) -> None:
-    """Phase 13 (f): ``python -m repro_torch.launch.serve --engine recsys
-    --gateway 127.0.0.1:0`` in a subprocess on the card (the reduced MIND:
-    ``--smoke`` cannot be turned off) answers one /v1/score, drains on
-    SIGINT and exits 0."""
+def serve_cli_gateway(label: str, dev, engine: str, request) -> None:
+    """``python -m repro_torch.launch.serve --engine <engine> --gateway
+    127.0.0.1:0`` in a subprocess on the card (the reduced config:
+    ``--smoke`` cannot be turned off) answers one request (``request(client)``
+    returns its output and whether it is right), drains on SIGINT and
+    exits 0."""
     import queue
     import re
     import signal
     import threading
 
-    import numpy as np
-
     from repro_torch.gateway import GatewayClient
 
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", "--engine",
-                             "recsys", "--gateway", "127.0.0.1:0"], cwd=ROOT, env=env,
+                             engine, "--gateway", "127.0.0.1:0"], cwd=ROOT, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines: queue.Queue = queue.Queue()
 
@@ -2626,16 +2666,16 @@ def gateway_cli(dev) -> None:
             try:
                 line = lines.get(timeout=max(deadline - time.monotonic(), 0.1))
             except queue.Empty:
-                fail(f"gateway (f): no [gateway] line within 300 s: {''.join(seen)}")
+                fail(f"{label}: no [gateway] line within 300 s: {''.join(seen)}")
             if line is None:
-                fail(f"gateway (f): the CLI exited {proc.wait()} before serving: {''.join(seen)}")
+                fail(f"{label}: the CLI exited {proc.wait()} before serving: {''.join(seen)}")
             seen.append(line)
             m = re.search(r"\[gateway\] .* on (http://\S+) ", line)
             url = m and m.group(1)
         if f"; {dev.type}" not in seen[-1]:
-            fail(f"gateway (f): the CLI does not serve on the card: {seen[-1]}")
+            fail(f"{label}: the CLI does not serve on the card: {seen[-1]}")
         client = GatewayClient(url, timeout_s=GW_JOIN_S, retries=0)
-        scores = client.score([1, 2, 3], [4, 5], timeout_s=GW_JOIN_S)
+        got, ok = request(client)
         health = client.health()
         proc.send_signal(signal.SIGINT)
         rc = proc.wait(timeout=60.0)
@@ -2647,12 +2687,24 @@ def gateway_cli(dev) -> None:
             proc.kill()
             proc.wait(10.0)
     out = "".join(seen)
-    print(f"gateway (f): the CLI served {scores.tolist()} on {url} (/healthz "
+    print(f"{label}: the CLI served {got} on {url} (/healthz "
           f"{health['status']}), then exit {rc} on SIGINT; its output:\n{out.rstrip()}")
-    if scores.shape != (2,) or not np.isfinite(scores).all() or health["status"] != "ok":
-        fail(f"gateway (f): scores {scores}, /healthz {health}")
+    if not ok or health["status"] != "ok":
+        fail(f"{label}: served {got}, /healthz {health}")
     if rc != 0 or "[gateway] stopped: completed=1" not in out:
-        fail(f"gateway (f): exit {rc}: {out}")
+        fail(f"{label}: exit {rc}: {out}")
+
+
+def gateway_cli(dev) -> None:
+    """Phase 13 (f): the serve CLI's ``--engine recsys --gateway`` answers
+    one /v1/score with two finite scores."""
+    import numpy as np
+
+    def score(client):
+        scores = client.score([1, 2, 3], [4, 5], timeout_s=GW_JOIN_S)
+        return scores.tolist(), scores.shape == (2,) and bool(np.isfinite(scores).all())
+
+    serve_cli_gateway("gateway (f)", dev, "recsys", score)
 
 
 def run_gateway(dev, params) -> dict:
@@ -2670,6 +2722,532 @@ def run_gateway(dev, params) -> dict:
     phase("13e (gateway, warm restart)", gateway_warm_restart, dev, params, cfg)
     phase("13f (gateway, serve CLI)", gateway_cli, dev)
     return entry
+
+
+# ---------------------------------------------------------------------------
+# phase 14: LM serving (nn.transformer, LMServeEngine, lm_loop, --engine lm)
+# ---------------------------------------------------------------------------
+def kernel_counters() -> tuple:
+    """K1's, K2's and K3's wrappers: each counts its launches on the card."""
+    from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
+    from repro_torch.kernels.hot_gather.hot_gather import (hot_gather_hot_part,
+                                                           hot_gather_segment_sum)
+
+    return hot_gather_hot_part, hot_gather_segment_sum, hot_bag_hot_part
+
+
+def lm_close(label: str, got, want, tol: dict) -> float:
+    """Max abs difference of two float tensors (``got`` on the card), after
+    checking both are finite and within ``tol``."""
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max())
+    ok = bool(torch.isfinite(got).all() and torch.isfinite(want).all()
+              and torch.allclose(got, want, **tol))
+    print(f"{label}: max abs diff {err:.4e} (rtol {tol['rtol']}, atol {tol['atol']}) "
+          f"on values up to {float(want.abs().max()):.3f}")
+    if not ok:
+        fail(f"{label}: outside rtol {tol['rtol']} atol {tol['atol']} (max abs diff {err})")
+    return err
+
+
+def lm_layers(params, n: int):
+    """The first ``n`` layers of an LM's parameters (views)."""
+    from repro_torch.train.tree import tree_map
+
+    return dict(params, layers=tree_map(lambda a: a[:n], params["layers"]))
+
+
+def lm_weight_bytes(params) -> tuple[float, float]:
+    """(bytes a decode step moves as the JAX package's ``dense`` computes
+    it, the same with bfloat16 weights held): every layer matrix read in
+    float32, written in bfloat16 and read again (8 bytes a weight; 2 if
+    held), the float32 LM head read once (4; 2 if held), the norms'
+    float32 read; the embedding rows and the small KV cache left out."""
+    from repro_torch.train.tree import tree_leaves
+
+    cast = held = 0.0
+    for leaf in tree_leaves(params["layers"]):
+        n = leaf.numel()
+        cast += (8 if leaf.dim() > 2 else 4) * n
+        held += (2 if leaf.dim() > 2 else 4) * n
+    head = params["lm_head"]["w"].numel()
+    return cast + 4 * head, held + 2 * head
+
+
+def profile_top(fn, top: int = 6) -> tuple[float, float, str]:
+    """(device busy ms, host wall ms, the kernel count and the top kernels
+    by device time) of ``fn`` under torch.profiler, in a window padded by
+    ``spin_pad``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    # the card's activity only: a batch launches ~90,000 kernels, and host
+    # events beside them take the profiler most of a minute to sort
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        spin_pad()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        spin_pad()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "spin_kernel" not in e.key),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    tops = (f"{sum(e.count for e in kernels)} kernels; "
+            + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                        for e in kernels[:top]))
+    return busy, wall, tops
+
+
+def lm_prompts(vocab: int, n: int, length: int, seed: int):
+    import numpy as np
+
+    from repro_torch.data.pipeline import zipf_ids
+
+    return zipf_ids(np.random.default_rng(seed), (n, length), vocab)
+
+
+def lm_serve_full(dev):
+    """Phase 14 (a): minitron-8b at its published width and depth (32
+    layers, d 4096, 32 heads, 8 KV heads, d_ff 16,384, vocab 256,000; float32
+    weights drawn on the card): lm_loop(smoke=False) at the serve CLI's
+    defaults (16 requests, batches of 8, prefill 64, decode 32), then
+    LMServeEngine(smoke=False) serving 16 queued requests, its prefill and
+    decode step timed by CUDA events, one batch's busy share under
+    torch.profiler, and peak memory. Returns the engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.serve.engine import LMServeEngine, lm_loop
+    from repro_torch.serve.scheduler import SchedulerConfig
+    from repro_torch.train.tree import tree_leaves
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = lm_loop(arch=LM_ARCH, smoke=False, requests=LM_REQUESTS, batch=LM_BATCH,
+                    prefill=LM_PREFILL, decode=LM_DECODE, device=dev)
+    print(f"lm (a): lm_loop {LM_ARCH} at full width: {stats}; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    engine = LMServeEngine(arch=LM_ARCH, smoke=False, prefill=LM_PREFILL, decode=LM_DECODE,
+                           sched_config=SchedulerConfig(max_batch=LM_BATCH, max_queue=64),
+                           device=dev)
+    cfg, params = engine.cfg, engine.params
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    torch.cuda.synchronize()
+    print(f"lm (a): {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.n_kv} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n_params} parameters "
+          f"(param_count {cfg.param_count()}), {n_params * 4 / 1e9:.2f} GB float32, drawn on "
+          f"the card in {time.perf_counter() - t0:.1f} s")
+    # param_count leaves out ln_f's gain (d_model entries)
+    if n_params != cfg.param_count() + cfg.d_model:
+        fail(f"lm (a): {n_params} parameters against param_count {cfg.param_count()}")
+    engine.warmup()
+    prompts = lm_prompts(cfg.vocab, LM_REQUESTS, LM_PREFILL, seed=0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    reqs = [engine.submit({"tokens": p}) for p in prompts]
+    engine.run_until_idle()
+    wall = time.perf_counter() - t0
+    outs = [r.result for r in reqs]
+    if not all(o is not None and o.shape == (LM_DECODE,) and 0 <= o.min() and o.max() < cfg.vocab
+               for o in outs):
+        fail(f"lm (a): engine results {[None if o is None else o.shape for o in outs]}")
+    served = engine.metrics.counters["tokens_generated"]
+    print(f"lm (a): LMServeEngine served {len(reqs)} requests ({served} tokens) in {wall:.3f} s: "
+          f"{served / wall:.1f} tok/s; first request's tokens {outs[0][:8].tolist()}...")
+
+    tokens = torch.from_numpy(prompts[:LM_BATCH]).to(dev)
+    max_len = LM_PREFILL + LM_DECODE
+    prefill_ms = time_ms(lambda: tfm.prefill(params, cfg, tokens, max_len=max_len), reps=5,
+                         warmup=1)
+    _, cache = tfm.prefill(params, cfg, tokens, max_len=max_len)
+    tok = torch.zeros(LM_BATCH, dtype=torch.long, device=dev)
+    # each call writes position LM_PREFILL of the same cache: one step's work
+    decode_ms = time_ms(lambda: tfm.decode_step(params, cfg, cache, tok), reps=10, warmup=2)
+    cast_bytes, held_bytes = lm_weight_bytes(params)
+    print(f"lm (a): batch {LM_BATCH}: prefill of {LM_PREFILL} tokens {prefill_ms:.3f} ms, "
+          f"decode {decode_ms:.3f} ms a step (CUDA events); a decode step's weight traffic "
+          f"{cast_bytes / 1e9:.2f} GB as dense casts the float32 weights (bound "
+          f"{cast_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+          f"{held_bytes / 1e9:.2f} GB with bfloat16 weights held (bound "
+          f"{held_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms)")
+    # a batch is one prefill and LM_DECODE - 1 decode steps, each over the
+    # whole cache: the same kernels every step. So its busy time is the
+    # profiled prefill's plus LM_DECODE - 1 profiled steps' (the mean of 3),
+    # over the batch's wall time without the profiler (a whole batch
+    # profiled, ~90,000 kernels, took the profiler 37 s to sort)
+    payloads = [{"tokens": p} for p in prompts[:LM_BATCH]]
+    engine.forward(payloads)
+    t0 = time.perf_counter()
+    engine.forward(payloads)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    t_prof = time.perf_counter()
+    busy_p, wall_p, tops_p = profile_top(
+        lambda: tfm.prefill(params, cfg, tokens, max_len=max_len))
+    busy_d, wall_d, tops_d = profile_top(
+        lambda: [tfm.decode_step(params, cfg, cache, tok) for _ in range(3)])
+    busy = busy_p + (LM_DECODE - 1) * busy_d / 3
+    print(f"lm (a): one batch of {LM_BATCH}: {batch_ms:.1f} ms wall, device busy {busy:.1f} ms "
+          f"({busy / batch_ms:.1%} busy): prefill busy {busy_p:.2f} ms (profiled wall "
+          f"{wall_p:.2f}), a decode step busy {busy_d / 3:.2f} ms (profiled wall "
+          f"{wall_d / 3:.2f}); prefill's {tops_p}; 3 decode steps' {tops_d}")
+    print(f"lm (a): peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB while serving; "
+          f"(a) took {time.perf_counter() - t_start:.1f} s, the profiled windows "
+          f"{time.perf_counter() - t_prof:.1f} s of it")
+    if not np.isfinite([prefill_ms, decode_ms]).all():
+        fail("lm (a): timings")
+    return engine
+
+
+def lm_teacher_forcing(engine) -> None:
+    """Phase 14 (b): tests/test_nn.py::test_decode_matches_forward at full
+    width and depth: prefill over 8 tokens and 4 decode steps against
+    forward's logits at the same positions. That test's tolerance (rtol
+    0.06, atol 5e-2) is for logits of ~0.6 after 2 layers; here they reach
+    ~6 after 32, and the card's bfloat16 products round differently at
+    each shape (cuBLAS picks its kernel by shape). So the run measures that
+    floor too: forward over the first t + 1 tokens against forward over 13
+    at each position t, the same function at another length (two lengths
+    may share their kernels and agree bit for bit; the floor is the
+    largest difference over the five). Each step passes within the test's
+    tolerance, or within twice the floor."""
+    import torch
+
+    from repro_torch.nn import transformer as tfm
+
+    cfg, params = engine.cfg, engine.params
+    tokens = torch.from_numpy(lm_prompts(cfg.vocab, 2, 13, seed=1)).to(engine.device)
+    full = tfm.forward(params, cfg, tokens)[0].float()
+    floors = [float((tfm.forward(params, cfg, tokens[:, :t + 1])[0][:, t].float()
+                     - full[:, t]).abs().max()) for t in range(7, 12)]
+    floor = max(floors)
+    print(f"lm (b): floor, forward over t + 1 tokens vs 13 at t = 7..11: "
+          f"{[f'{f:.4e}' for f in floors]}")
+    logits, cache = tfm.prefill(params, cfg, tokens[:, :8], max_len=16)
+    steps = [("prefill(8)", 7, logits)]
+    for t in range(8, 12):
+        logits, cache = tfm.decode_step(params, cfg, cache, tokens[:, t])
+        steps.append(("decode step", t, logits))
+    for name, t, got in steps:
+        got, want = got.float(), full[:, t]
+        err = float((got - want).abs().max())
+        in_tol = bool(torch.allclose(got, want, **LM_TF_TOL))
+        print(f"lm (b): {name} at position {t} vs forward: max abs diff {err:.4e} on logits up "
+              f"to {float(want.abs().max()):.3f}; within rtol {LM_TF_TOL['rtol']} atol "
+              f"{LM_TF_TOL['atol']}: {in_tol}; within twice the floor {floor:.4e}: "
+              f"{err <= 2 * floor}")
+        if not torch.isfinite(got).all() or not (in_tol or err <= 2 * floor):
+            fail(f"lm (b): {name} at position {t}: max abs diff {err} against floor {floor}")
+
+
+def greedy_agrees(label: str, card_logits, cpu_logits, tol: dict) -> None:
+    """The card's greedy tokens equal the CPU's wherever the CPU's top-1 /
+    top-2 margin exceeds twice the logit tolerance at the top logit."""
+    import torch
+
+    cpu_logits = cpu_logits.float()
+    top2 = torch.topk(cpu_logits, 2, dim=-1).values
+    limit = 2 * (tol["atol"] + tol["rtol"] * top2[..., 0].abs())
+    clear = (top2[..., 0] - top2[..., 1]) > limit
+    same = card_logits.float().cpu().argmax(-1) == cpu_logits.argmax(-1)
+    print(f"{label}: greedy tokens equal at {int(same.sum())} of {same.numel()} positions; "
+          f"{int(clear.sum())} positions have a clear margin, all of them equal: "
+          f"{bool(same[clear].all())}")
+    if not bool(same[clear].all()):
+        fail(f"{label}: a greedy token differs where the margin is clear")
+
+
+def lm_card_vs_cpu(label: str, cfg, params, n_layers: int, dev, routing=None):
+    """``params`` cut to ``n_layers`` layers at full width on the card
+    against the same weights on the CPU: 2 prompts of 64 tokens, the
+    prefill logits and 4 decode steps' logits (fed the CPU's greedy tokens)
+    within LM_CPU_REL of the largest CPU logit, the greedy tokens as
+    ``greedy_agrees`` says.
+    ``routing``, for a MoE config, records both devices' expert choices:
+    a sequence the two route differently is left out of the logits check
+    (its tokens may go to other experts) and counted. Returns the cut
+    config, the card's and the CPU's parameters and the prompts."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.train.tree import tree_map
+
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    card = lm_layers(params, n_layers)
+    t0 = time.perf_counter()
+    cpu = tree_map(lambda t: t.cpu(), card)
+    tokens = torch.from_numpy(lm_prompts(cfg.vocab, 2, 64, seed=2))
+    max_len = 64 + 4
+    steps = []
+    with routing or contextlib.nullcontext():
+        cpu_logits, cpu_cache = tfm.prefill(cpu, cut, tokens, max_len=max_len)
+        card_logits, card_cache = tfm.prefill(card, cut, tokens.to(dev), max_len=max_len)
+        steps.append(("prefill", card_logits, cpu_logits))
+        for t in range(4):
+            fed = cpu_logits.argmax(-1)
+            cpu_logits, cpu_cache = tfm.decode_step(cpu, cut, cpu_cache, fed)
+            card_logits, card_cache = tfm.decode_step(card, cut, card_cache, fed.to(dev))
+            steps.append((f"decode {t}", card_logits, cpu_logits))
+    rows = routing.agree(2, n_layers) if routing else torch.ones(2, dtype=torch.bool)
+    print(f"{label}: {n_layers} of {cfg.n_layers} layers at full width, CPU copy and run "
+          f"{time.perf_counter() - t0:.1f} s; sequences routed alike on both: "
+          f"{int(rows.sum())} of 2")
+    for name, got, want in steps:
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            fail(f"{label}: {name} logits are not finite")
+        if rows.any():
+            tol = dict(rtol=0.0, atol=LM_CPU_REL * float(want[rows].abs().max()))
+            lm_close(f"{label}: {name} logits, card vs CPU", got[rows.to(got.device)],
+                     want[rows], tol)
+            greedy_agrees(f"{label}: {name}", got[rows.to(got.device)], want[rows], tol)
+    return cut, card, cpu, tokens
+
+
+def kept_picks(ids, n_experts: int, cap: int):
+    """(T, k) expert ids -> which picks ``nn.layers.moe`` keeps: a pick's
+    rank among the earlier picks of its expert, in token order, below
+    ``cap``."""
+    import torch
+    import torch.nn.functional as F
+
+    flat = ids.reshape(-1)
+    onehot = F.one_hot(flat, n_experts)
+    ranks = (onehot.cumsum(0) - onehot).gather(1, flat[:, None])[:, 0]
+    return (ranks < cap).reshape(ids.shape)
+
+
+def lm_moe_layers_card_vs_cpu(label: str, cfg, card, cpu, tokens, dev) -> None:
+    """A MoE model card against CPU layer by layer: each layer gets the
+    CPU's hidden states on both devices, so a token the two route apart
+    cannot carry its difference on. Its output (B, S, d) is held, token by
+    token, where both devices chose the same experts and kept the same
+    picks, within rtol 1e-2 and 1e-2 of the largest CPU entry (one layer's
+    bfloat16 products); at least 90% of the tokens must be routed alike."""
+    import numpy as np
+    import torch
+
+    from repro_torch.nn import transformer as tfm
+
+    b, s = tokens.shape
+    pos = torch.arange(s).expand(b, s)
+    x = tfm._embed(cpu, tokens)
+    moe = cfg.moe
+    cap = int(np.ceil(b * s * moe.top_k / moe.n_experts * moe.capacity_factor))
+    for i in range(cfg.n_layers):
+        with MoERouting() as routing:
+            want, _, _ = tfm._layer_fwd(cfg, tfm.layer_params(cpu, i), x, pos)
+            got, _, _ = tfm._layer_fwd(cfg, tfm.layer_params(card, i), x.to(dev), pos.to(dev))
+        ids_cpu, ids_card = routing.calls
+        alike = ((ids_cpu == ids_card).all(1)
+                 & (kept_picks(ids_cpu, moe.n_experts, cap)
+                    == kept_picks(ids_card, moe.n_experts, cap)).all(1)).reshape(b, s)
+        share = float(alike.float().mean())
+        print(f"{label}: layer {i} on the CPU's input: {int(alike.sum())} of {b * s} tokens "
+              f"routed alike ({share:.1%})")
+        tol = dict(rtol=1e-2, atol=1e-2 * float(want.float().abs().max()))
+        lm_close(f"{label}: layer {i}'s output over those tokens, card vs CPU",
+                 got[alike.to(dev)], want[alike], tol)
+        if share < 0.9:
+            fail(f"{label}: layer {i}: only {share:.1%} of tokens routed alike")
+        x = want
+
+
+class MoERouting:
+    """Records the expert choices of every ``nn.layers.moe`` call while
+    active. ``lm_card_vs_cpu`` runs each step on the CPU, then on the card,
+    so the calls come in blocks of ``n_layers`` CPU calls and ``n_layers``
+    card calls, and ``agree`` compares them call by call. A token routed
+    differently sets its own and every later sequence apart (the capacity
+    ranks follow the token order)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.nn import layers
+
+        self._moe = layers.moe
+
+        def recording(params, x, top_k, **kw):
+            probs = torch.softmax(layers.dense(params["router"], x, torch.float32), -1)
+            self.calls.append(layers.top_k_experts(probs, top_k)[1].cpu())
+            return self._moe(params, x, top_k, **kw)
+
+        layers.moe = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import layers
+
+        layers.moe = self._moe
+        return False
+
+    def agree(self, batch: int, n_layers: int):
+        import torch
+
+        blocks = [self.calls[i:i + n_layers] for i in range(0, len(self.calls), n_layers)]
+        if len(blocks) % 2 or any(len(b) != n_layers for b in blocks):
+            fail(f"MoE routing: {len(self.calls)} calls, not CPU/card blocks of {n_layers}")
+        cpu = [c for b in blocks[0::2] for c in b]
+        card = [c for b in blocks[1::2] for c in b]
+        ok = torch.ones(batch, dtype=torch.bool)
+        for a, b in zip(cpu, card):
+            diff = torch.nonzero((a != b).any(dim=1)).flatten()
+            if diff.numel():
+                ok[int(diff[0]) // (a.shape[0] // batch):] = False
+        return ok
+
+
+def lm_prefill_32k(engine) -> None:
+    """Phase 14 (d): LM_SHAPES["prefill_32k"] cut from 32 sequences to 1 (the
+    KV cache of 32 would alone take 137 GB): one sequence of 32,768 tokens
+    through prefill at full width and depth, its time and peak memory, the
+    logits finite; then layer 0's chunked attention at 4,096 tokens against
+    the same call in one chunk (q_chunk = kv_chunk = 4,096; rtol = atol =
+    1e-2, tests/test_torch_lm.py's bound on one bfloat16 layer)."""
+    import torch
+
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.nn import layers as L
+    from repro_torch.nn import transformer as tfm
+
+    cfg, params, dev = engine.cfg, engine.params, engine.device
+    seq = LM_SHAPES["prefill_32k"].seq_len
+    tokens = torch.from_numpy(lm_prompts(cfg.vocab, 1, seq, seed=3)).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits, cache = tfm.prefill(params, cfg, tokens)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"lm (d): prefill of {seq} tokens at batch 1 (of prefill_32k's "
+          f"{LM_SHAPES['prefill_32k'].global_batch}): {ms:.1f} ms (CUDA events, first call at "
+          f"this shape), {seq / ms * 1e3:.0f} tokens/s; peak {peak / 2**30:.2f} GiB "
+          f"({(peak - base) / 2**30:.2f} GiB above the weights), KV cache "
+          f"{2 * cache.k.numel() * cache.k.element_size() / 2**30:.2f} GiB, cache length "
+          f"{cache.length}")
+    if logits.shape != (1, cfg.vocab) or not torch.isfinite(logits).all() or cache.length != seq:
+        fail(f"lm (d): logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    del logits, cache
+    n = 4096
+    lp = tfm.layer_params(params, 0)
+    x = tfm._norm(cfg, lp["ln1"], tfm._embed(params, tokens[:, :n]))
+    pos = torch.arange(n, device=dev)[None]
+    q = L.rope(L.dense(lp["attn"]["wq"], x).reshape(1, n, cfg.n_heads, cfg.head_dim), pos)
+    k = L.rope(L.dense(lp["attn"]["wk"], x).reshape(1, n, cfg.n_kv, cfg.head_dim), pos)
+    v = L.dense(lp["attn"]["wv"], x).reshape(1, n, cfg.n_kv, cfg.head_dim)
+    chunked = L.attention(q, k, v)
+    one = L.attention(q, k, v, q_chunk=n, kv_chunk=n)
+    lm_close(f"lm (d): layer 0's attention at {n} tokens, 8 x 4 chunks vs one chunk", chunked,
+             one, dict(rtol=1e-2, atol=1e-2))
+
+
+def lm_moe(dev) -> None:
+    """Phase 14 (e): phi3.5-moe-42b-a6.6b at its published width, 4 of 32
+    layers (16 experts, top-2, d 4096, d_ff 6,400; its 32 layers in
+    float32 would not fit one card): one batch of 8 x 64 tokens and 8
+    greedy decode steps on the card, finite; then 2 of those layers on the
+    card against the CPU as in (c), end to end over the sequences both
+    devices route alike (a token routed apart moves its sequence past any
+    tolerance), and layer by layer over the tokens both route alike."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.nn import transformer as tfm
+
+    full = get_arch(LM_MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=LM_MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = tfm.init(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"lm (e): {cfg.name} at {cfg.n_layers} of {full.n_layers} layers: "
+          f"{cfg.param_count()} parameters ({cfg.param_count() * 4 / 1e9:.2f} GB float32), "
+          f"drawn in {time.perf_counter() - t0:.1f} s")
+    tokens = torch.from_numpy(lm_prompts(cfg.vocab, LM_BATCH, LM_PREFILL, seed=4)).to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits, cache = tfm.prefill(params, cfg, tokens, max_len=LM_PREFILL + 8)
+    out = [logits.argmax(-1)]
+    finite = bool(torch.isfinite(logits).all())
+    for _ in range(8):
+        logits, cache = tfm.decode_step(params, cfg, cache, out[-1])
+        finite &= bool(torch.isfinite(logits).all())
+        out.append(logits.argmax(-1))
+    end.record()
+    end.synchronize()
+    print(f"lm (e): prefill {LM_BATCH} x {LM_PREFILL} and 8 decode steps in "
+          f"{start.elapsed_time(end):.1f} ms, logits finite {finite}, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; tokens of row 0 "
+          f"{[int(t[0]) for t in out]}")
+    if not finite:
+        fail("lm (e): non-finite logits")
+    cut, card, cpu, tokens = lm_card_vs_cpu("lm (e)", cfg, params, LM_CPU_LAYERS, dev,
+                                            MoERouting())
+    lm_moe_layers_card_vs_cpu("lm (e)", cut, card, cpu, tokens, dev)
+
+
+def lm_cli(dev) -> None:
+    """Phase 14 (f): ``python -m repro_torch.launch.serve --engine lm`` on
+    the card (the reduced starcoder2-7b at the CLI's defaults), then the
+    same with ``--gateway`` answering one /v1/generate."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--engine", "lm"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    print(f"lm (f): --engine lm exit {proc.returncode}: {proc.stdout.strip()}")
+    if proc.returncode != 0 or "[serve] 16 requests, 512 tokens" not in proc.stdout:
+        fail(f"lm (f): --engine lm: {proc.stdout} {proc.stderr}")
+
+    def generate(client):
+        toks = client.generate([1, 2, 3], timeout_s=GW_JOIN_S)
+        return toks, len(toks) == 32 and all(isinstance(t, int) for t in toks)
+
+    serve_cli_gateway("lm (f)", dev, "lm", generate)
+
+
+def run_lm_serving(dev) -> None:
+    """Phase 14: LM serving, which launches no kernel of the port (the JAX
+    package's transformer reaches no pallas_call): K1's, K2's and K3's
+    launch counts are 0 at its start and still 0 at its end."""
+    import torch
+
+    torch.empty(0, device=dev)   # the card's context, before its memory stats are read
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    engine = phase("14a (minitron-8b served at full width)", lm_serve_full, dev)
+    phase("14b (teacher forcing at full depth)", lm_teacher_forcing, engine)
+    phase("14c (minitron-8b, card vs CPU at 2 layers)", lm_card_vs_cpu, "lm (c)", engine.cfg,
+          engine.params, LM_CPU_LAYERS, dev)
+    phase("14d (prefill_32k at batch 1)", lm_prefill_32k, engine)
+    del engine
+    torch.cuda.empty_cache()
+    phase("14e (phi3.5-MoE at 4 of 32 layers)", lm_moe, dev)
+    torch.cuda.empty_cache()
+    phase("14f (serve CLI --engine lm)", lm_cli, dev)
+    launched = {c.__name__: c.launches for c in counters}
+    print(f"LM serving: kernel launches {launched}")
+    if any(launched.values()):
+        fail(f"LM serving launched a kernel: {launched}")
 
 
 def phase(label: str, fn, *args):
@@ -2783,6 +3361,11 @@ def main() -> int:
     del params, k1_mix, dense_mix, cache_mix, gnn_mix
     torch.cuda.empty_cache()
     phase("12 (GRASP-partitioned GIN training)", run_grasp_training, dev, real_graph, qs_graph)
+    # the LMs' float32 weights (31 GB for minitron-8b) after every earlier
+    # phase's tensors are gone
+    del real_graph, qs_graph
+    torch.cuda.empty_cache()
+    phase("14 (LM serving)", run_lm_serving, dev)
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

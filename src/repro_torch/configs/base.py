@@ -1,14 +1,74 @@
 """Config system: architectures x input shapes.
 
 ``ARCHS`` maps arch id -> config; ``SHAPES[family]`` maps shape id ->
-shape spec (``GNN_SHAPES``, ``RECSYS_SHAPES``). ``reduced()`` produces the
-CPU-smoke-test variant of an arch. The port carries the GNN (GIN, PNA,
-EGNN, NequIP) and recsys (MIND) families; the LM configs join with their
-slice.
+shape spec (``LM_SHAPES``, ``GNN_SHAPES``, ``RECSYS_SHAPES``).
+``reduced()`` produces the CPU-smoke-test variant of an arch. The port
+carries the JAX package's three families: the LMs (minitron-8b,
+starcoder2-7b, phi3.5-moe-42b-a6.6b, moonshot-v1-16b-a3b,
+nemotron-4-340b), the GNNs (GIN, PNA, EGNN, NequIP) and recsys (MIND).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    act: str = "silu"          # ffn activation
+    gated: bool = True         # GLU-style ffn
+    moe: Optional[MoECfg] = None
+    rope_theta: float = 10000.0
+    norm: str = "rmsnorm"
+    remat: bool = True
+    optimizer: str = "adamw"   # nemotron-340b uses adafactor (memory)
+    microbatches: int = 8      # gradient-accumulation splits of global batch
+    seq_shard: bool = False    # Megatron-SP activation sharding over model
+    layer_groups: int = 1      # >1: sqrt-L nested-group remat (340B class)
+    # GRASP tie-in: Zipf-ordered vocab embedding with hot-prefix replication
+    # (read nowhere in either package's code)
+    grasp_vocab: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def family(self) -> str:
+        return "lm"
+
+    def param_count(self) -> int:
+        d, l = self.d_model, self.n_layers
+        attn = d * self.n_heads * self.head_dim * 2 + d * self.n_kv * self.head_dim * 2
+        ff_mats = 3 if self.gated else 2
+        if self.moe:
+            ff = self.moe.n_experts * ff_mats * d * self.d_ff + d * self.moe.n_experts
+        else:
+            ff = ff_mats * d * self.d_ff
+        return l * (attn + ff + 2 * d) + 2 * self.vocab * d
+
+    def active_param_count(self) -> int:
+        if not self.moe:
+            return self.param_count()
+        d, l = self.d_model, self.n_layers
+        attn = d * self.n_heads * self.head_dim * 2 + d * self.n_kv * self.head_dim * 2
+        ff_mats = 3 if self.gated else 2
+        ff = self.moe.top_k * ff_mats * d * self.d_ff + d * self.moe.n_experts
+        return l * (attn + ff + 2 * d) + 2 * self.vocab * d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +113,14 @@ class RecsysConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LMShape:
+    name: str
+    kind: str        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+@dataclasses.dataclass(frozen=True)
 class GNNShape:
     name: str
     kind: str        # full_graph | minibatch | molecule
@@ -72,6 +140,13 @@ class RecsysShape:
     n_candidates: int = 0
 
 
+LM_SHAPES = {
+    "train_4k": LMShape("train_4k", "train", 4096, 256),
+    "prefill_32k": LMShape("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": LMShape("decode_32k", "decode", 32768, 128),
+    "long_500k": LMShape("long_500k", "decode", 524288, 1),
+}
+
 GNN_SHAPES = {
     "full_graph_sm": GNNShape("full_graph_sm", "full_graph", 2708, 10556, d_feat=1433),
     "minibatch_lg": GNNShape(
@@ -89,7 +164,7 @@ RECSYS_SHAPES = {
     "retrieval_cand": RecsysShape("retrieval_cand", "retrieval", 1, n_candidates=1_000_000),
 }
 
-SHAPES = {"gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES}
+SHAPES = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES}
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +193,11 @@ def all_archs():
 def load_all():
     """Import every per-arch config module (side-effect: register())."""
     from repro_torch.configs import (  # noqa: F401
+        moonshot_v1_16b_a3b,
+        phi35_moe_42b_a6_6b,
+        minitron_8b,
+        starcoder2_7b,
+        nemotron4_340b,
         egnn,
         nequip,
         gin_tu,
@@ -130,8 +210,23 @@ def load_all():
 # Reduced configs for CPU smoke tests
 # ---------------------------------------------------------------------------
 def reduced(cfg):
-    """Small same-family variant: few layers/width, tiny tables, short
+    """Small same-family variant: few layers/width, tiny vocab/tables, short
     histories."""
+    if isinstance(cfg, LMConfig):
+        return dataclasses.replace(
+            cfg,
+            name=cfg.name + "-smoke",
+            n_layers=2,
+            d_model=64,
+            n_heads=4,
+            n_kv=max(1, min(cfg.n_kv, 2)),
+            d_ff=128,
+            vocab=512,
+            moe=MoECfg(4, min(cfg.moe.top_k, 2)) if cfg.moe else None,
+            remat=False,
+            microbatches=1,
+            seq_shard=False,
+        )
     if isinstance(cfg, GNNConfig):
         return dataclasses.replace(
             cfg, name=cfg.name + "-smoke", n_layers=2, d_hidden=16, n_rbf=4

@@ -1,6 +1,7 @@
 """Carry the reference's state across: the graph, the plan and the trace
-of the graph pipeline, MIND's parameters, the GNNs' parameters, the
-optimizers' state and a rank's block of the GRASP step's batch. Each
+of the graph pipeline, MIND's parameters, the GNNs' parameters, the LMs'
+parameters, the optimizers' state and a rank's block of the GRASP step's
+batch. Each
 function takes the JAX package's numpy fields (or any arrays of the same
 values) and returns the port's object, with the dtypes the port's code
 expects."""
@@ -86,6 +87,15 @@ def _tensor_of(a, dev: torch.device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
     return torch.tensor(a, device=dev)
+
+
+def lm_params_from_numpy(params, device: str | torch.device = devices.DEFAULT_DEVICE):
+    """LM parameters from the JAX ``nn.transformer.init`` pytree as numpy
+    arrays (``embed``, ``layers`` stacked on a leading layer axis, ``ln_f``,
+    ``lm_head``) -> the same tree of tensors on ``device``, leaf for leaf,
+    each with its array's dtype."""
+    dev = devices.resolve(device)
+    return tree_map(lambda a: _tensor_of(a, dev), params)
 
 
 def opt_state_from_numpy(state, device: str | torch.device = devices.DEFAULT_DEVICE):

@@ -1,13 +1,13 @@
-"""Synthetic, seeded recsys and GNN batches (numpy, host side).
+"""Synthetic, seeded LM, recsys and GNN batches (numpy, host side).
 
-Recsys item ids are Zipf-distributed: the skew GRASP exploits. GNN batches
+Token ids and recsys item ids are Zipf-distributed: the skew GRASP
+exploits. GNN batches
 come from RMAT graphs (a full graph), random small molecules, or the
 fanout sampler (a minibatch). The same ``numpy.random.Generator`` state
 gives the same arrays as the JAX package's pipeline, so both packages can
 be fed one stream. The streams (``batches``, ``make_batch_fn``) seed each
 step with ``(seed, step)``, so fault-tolerant restarts replay; the
-``Prefetcher`` draws them on a background thread (double buffering). The
-``"lm"`` kind waits for the LM configs.
+``Prefetcher`` draws them on a background thread (double buffering).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 
-from repro_torch.configs.base import GNNShape, RecsysConfig, RecsysShape
+from repro_torch.configs.base import GNNShape, LMConfig, RecsysConfig, RecsysShape
 from repro_torch.graph import generate, sampler
 
 
@@ -26,6 +26,12 @@ def zipf_ids(rng: np.random.Generator, shape, vocab: int, a: float = 1.2) -> np.
     popularity-ordered layout the GRASP plan expects)."""
     raw = rng.zipf(a, size=shape)
     return np.minimum(raw - 1, vocab - 1).astype(np.int32)
+
+
+def lm_batch(rng: np.random.Generator, cfg: LMConfig, batch: int, seq: int) -> Dict:
+    """Zipf tokens (B, S) and their next tokens as labels."""
+    tokens = zipf_ids(rng, (batch, seq + 1), cfg.vocab)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:].astype(np.int32)}
 
 
 def recsys_batch(rng: np.random.Generator, cfg: RecsysConfig, shape: RecsysShape) -> Dict:
@@ -141,10 +147,10 @@ class Prefetcher:
 
 
 def _batch(kind: str, rng: np.random.Generator, cfg, shape) -> Dict:
+    if kind == "lm":
+        return lm_batch(rng, cfg, shape.global_batch, shape.seq_len)
     if kind == "recsys":
         return recsys_batch(rng, cfg, shape)
-    if kind == "lm":
-        raise NotImplementedError("lm batches join with the LM configs")
     raise ValueError(kind)
 
 

@@ -1,26 +1,33 @@
 """Serving CLI — a thin front-end over ``repro_torch.serve.engine``.
 
+    # transformer prefill+decode loop on the card (the reduced config):
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine lm \\
+        --arch starcoder2-7b --requests 16 --prefill 64 --decode 32
+
     # MIND candidate scoring through the GRASP embedding cache on a
     # zipf-skewed stream with deadlines + shed load, on the card:
     PYTHONPATH=src python -m repro_torch.launch.serve --engine recsys \\
         --requests 256 --qps 2000 --budget-kb 256 --json /tmp/serve.json
 
-    # the same on the CPU (the kernels' plain versions):
+    # either on the CPU (the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --engine recsys --device cpu
 
-    # put the engine behind the repro_torch.gateway RPC front-end (serves
-    # until Ctrl-C, then drains gracefully); --device cpu off the card:
+    # put either engine behind the repro_torch.gateway RPC front-end
+    # (serves until Ctrl-C, then drains gracefully); --device cpu off the
+    # card:
     PYTHONPATH=src python -m repro_torch.launch.serve --engine recsys \
         --gateway 127.0.0.1:8077
     curl -s -XPOST localhost:8077/v1/score \
         -d '{"hist": [1,2,3], "candidates": [4,5]}'
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine lm \
+        --gateway 127.0.0.1:8078
+    curl -s -XPOST localhost:8078/v1/generate -d '{"tokens": [1,2,3]}'
 
 The flags are the JAX package's. ``--smoke`` is on whatever the command
 line says (``store_true`` with ``default=True``, as there), so this CLI
-always serves the reduced MIND; full width is reached through
-``serve.engine.run_recsys_stream`` and ``serve.engine.RecsysServeEngine``.
-``--engine lm`` waits for the LM slice of the port (ROADMAP.md, "Modules
-to port") and raises, with or without ``--gateway``.
+always serves the reduced configs; full width is reached through
+``serve.engine.run_recsys_stream``, ``RecsysServeEngine``,
+``LMServeEngine(smoke=False)`` and ``lm_loop(smoke=False)``.
 
 All real logic lives in ``repro_torch.serve``/``repro_torch.gateway``; this
 module only parses flags and prints/emits the metrics snapshot.
@@ -32,53 +39,65 @@ import json
 
 
 def _run_gateway(args):
-    """Build the recsys engine on ``--device``, wrap it in a pump, and
+    """Build the requested engine on ``--device``, wrap it in a pump, and
     serve until interrupted; Ctrl-C triggers the graceful drain protocol.
 
-    On the card the kernels are built and the forward warmed up before the
-    server (and its supervisor) starts, so neither an ``nvcc`` build nor
-    the first allocations can be taken for a wedged pump."""
-    import torch
-
+    The forward is warmed up (and on the card the recsys engine's kernels
+    built) before the server (and its supervisor) starts, so neither an
+    ``nvcc`` build nor the first allocations can be taken for a wedged
+    pump."""
     from repro_torch import devices
-    from repro_torch.configs import base as cfgs
     from repro_torch.gateway import EnginePump, GatewayServer
-    from repro_torch.nn import recsys as recsys_mod
-    from repro_torch.serve.cache import CacheConfig
-    from repro_torch.serve.engine import RecsysServeEngine
     from repro_torch.serve.scheduler import SchedulerConfig
 
     dev = devices.resolve(args.device)
     host, _, port = args.gateway.rpartition(":")
-    # best-effort unless a deadline was asked for explicitly
+    # best-effort unless a deadline was asked for explicitly — a blanket
+    # 50ms default would shed every LM batch before it finished decoding
     deadline_s = None if args.deadline_ms is None else args.deadline_ms / 1e3
     sched = SchedulerConfig(max_batch=args.batch, max_queue=args.max_queue,
                             default_deadline_s=deadline_s)
-    cfg = cfgs.get_arch("mind")
-    if args.smoke:
-        cfg = cfgs.reduced(cfg)
-    params = recsys_mod.init(torch.Generator().manual_seed(0), cfg, device="cpu")
-    engine = RecsysServeEngine(
-        params, cfg,
-        CacheConfig(budget_bytes=args.budget_kb << 10,
-                    hot_fraction=args.hot_frac, policy=args.policy),
-        sched, device=dev)
-    if dev.type == "cuda":
-        from repro_torch.kernels import _build
+    if args.engine == "lm":
+        from repro_torch.serve.engine import LMServeEngine
 
-        _build.load("hot_gather")
-    engine.warmup(candidates=args.candidates)
+        engine = LMServeEngine(arch=args.arch, smoke=args.smoke, sched_config=sched,
+                               prefill=args.prefill, decode=args.decode, device=dev)
+        engine.warmup()
+        name = "generate"
+    else:
+        import torch
 
-    server = GatewayServer({"score": EnginePump(engine, "score")},
+        from repro_torch.configs import base as cfgs
+        from repro_torch.nn import recsys as recsys_mod
+        from repro_torch.serve.cache import CacheConfig
+        from repro_torch.serve.engine import RecsysServeEngine
+
+        cfg = cfgs.get_arch("mind")
+        if args.smoke:
+            cfg = cfgs.reduced(cfg)
+        params = recsys_mod.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+        engine = RecsysServeEngine(
+            params, cfg,
+            CacheConfig(budget_bytes=args.budget_kb << 10,
+                        hot_fraction=args.hot_frac, policy=args.policy),
+            sched, device=dev)
+        if dev.type == "cuda":
+            from repro_torch.kernels import _build
+
+            _build.load("hot_gather")
+        engine.warmup(candidates=args.candidates)
+        name = "score"
+
+    server = GatewayServer({name: EnginePump(engine, name)},
                            host=host or "127.0.0.1", port=int(port),
                            supervise=not args.no_supervise,
                            snapshot_dir=args.snapshot_dir).start()
     warm = ""
-    if args.snapshot_dir:
+    if args.snapshot_dir and getattr(engine, "cache", None) is not None:
         warm = (" (warm cache restore)" if engine.metrics.counters.get(
             "snapshot_restores") else " (cold start)")
     print(f"[gateway] {args.engine} engine on {server.url} "
-          f"(/v1/score, /healthz, /metrics; {dev}){warm} — Ctrl-C to drain and stop",
+          f"(/v1/{name}, /healthz, /metrics; {dev}){warm} — Ctrl-C to drain and stop",
           flush=True)
     try:
         while True:
@@ -130,12 +149,15 @@ def main(argv=None):
                     help="device of the cache's blocks and the forward (cuda or cpu)")
     args = ap.parse_args(argv)
 
-    if args.engine == "lm":
-        raise NotImplementedError(
-            "--engine lm: the LM stack is not ported yet (ROADMAP.md, modules to port: "
-            "the LM/train/launch stack)")
     if args.gateway:
         return _run_gateway(args)
+
+    if args.engine == "lm":
+        from repro_torch.serve.engine import lm_loop
+
+        return lm_loop(arch=args.arch, smoke=args.smoke, requests=args.requests,
+                       batch=args.batch, prefill=args.prefill, decode=args.decode,
+                       device=args.device)
 
     from repro_torch.configs import base as cfgs
     from repro_torch.serve.cache import CacheConfig

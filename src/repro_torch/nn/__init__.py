@@ -1,2 +1,2 @@
 """Neural-network building blocks (``layers``) and models (``gnn``,
-``recsys``)."""
+``recsys``, ``transformer``)."""

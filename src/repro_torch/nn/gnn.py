@@ -95,42 +95,11 @@ def _seg_extreme(x: torch.Tensor, dst: torch.Tensor, n: int, reduce: str) -> tor
     return torch.where(torch.isfinite(out), out, 0.0)
 
 
-class _Sigmoid(torch.autograd.Function):
-    """``jax.nn.sigmoid`` (``lax.logistic``) as the JAX package computes it
-    on the CPU, value and gradient. The value: in float32 as
-    ``torch.sigmoid`` (to an ulp); in bfloat16 as ``1 / (1 + exp(-x))``
-    with every step rounded to bfloat16, the form XLA expands it to there
-    (``torch.sigmoid`` rounds once and differs in a third of the values).
-    The gradient: ``g * (s * (1 - s))`` in the value's dtype, ``lax.logistic``'s
-    own rule (torch's rounds as ``g * (1 - s) * s``, which in bfloat16
-    moves NequIP's gradients by percents)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        s = 1 / (1 + torch.exp(-x)) if x.dtype == torch.bfloat16 else torch.sigmoid(x)
-        ctx.save_for_backward(s)
-        return s
-
-    @staticmethod
-    def backward(ctx, g):
-        (s,) = ctx.saved_tensors
-        return g * (s * (1 - s))
-
-
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    return _Sigmoid.apply(x)
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``: ``x * sigmoid(x)`` (``F.silu`` rounds differently)."""
-    return x * _sigmoid(x)
-
-
 def _mlp_init(gen: torch.Generator, dims):
     return [L.dense_init(gen, a, b) for a, b in zip(dims[:-1], dims[1:])]
 
 
-def _mlp(params, x, act=_silu, compute_dtype=torch.float32):
+def _mlp(params, x, act=L.silu, compute_dtype=torch.float32):
     for i, p in enumerate(params):
         x = L.dense(p, x, compute_dtype)
         if i < len(params) - 1:
@@ -261,7 +230,7 @@ def egnn_apply(params, cfg: GNNConfig, batch: Dict):
         d2 = torch.sum(diff * diff, dim=-1, keepdim=True)
         hi, hj = h.index_select(0, dst), h.index_select(0, src)
         m = _mlp(lp["phi_e"], torch.cat([hi, hj, d2], dim=-1))
-        m = _silu(m)
+        m = L.silu(m)
         m = torch.where(emask[:, None], m, 0.0)
         # coordinate update (equivariant), divided by the masked degree
         w = _mlp(lp["phi_x"], m)
@@ -370,13 +339,13 @@ def nequip_apply(params, cfg: GNNConfig, batch: Dict):
         # gate take dense's bfloat16 default, as in the JAX package
         s_mix = L.dense(lp["self0"], s + s_new)
         v_mix = torch.einsum("ndk,do->nok", v + v_new, lp["self1"]["w"])
-        gates = L.dense(lp["gate"], _silu(s_mix))
+        gates = L.dense(lp["gate"], L.silu(s_mix))
         g1, g0 = gates[:, :d], gates[:, d:]
-        s = _silu(s_mix + g0)
-        v = v_mix * _sigmoid(g1)[:, :, None]
+        s = L.silu(s_mix + g0)
+        v = v_mix * L.sigmoid(g1)[:, :, None]
         if cfg.l_max >= 2:
             t_mix = torch.einsum("ndk,do->nok", t + t_new, lp["self2"]["w"])
-            t = t_mix * _sigmoid(g1)[:, :, None]
+            t = t_mix * L.sigmoid(g1)[:, :, None]
 
     energy = _mlp(params["out"], s)[:, 0]                 # invariant readout
     return energy

@@ -16,10 +16,13 @@ the padded block graph. Its partial batches are padded with seed node 0
 *before* sampling, as in the JAX package, so the pad seeds' blocks go
 through the cache too.
 
+``LMServeEngine`` serves greedy generation: prompts are clipped and
+left-padded to one ``(max_batch, prefill)`` shape, prefilled into a KV
+cache and decoded token by token (``nn.transformer``); ``lm_loop`` is the
+serve CLI's batched prefill+decode loop over Zipf prompts.
+
 ``run_recsys_stream`` drives a full closed-loop run on a zipf request
 stream against a virtual clock — the entry point the serve CLI uses.
-
-The LM engine joins with its slice.
 """
 from __future__ import annotations
 
@@ -31,11 +34,13 @@ import numpy as np
 import torch
 
 from repro_torch import devices
+from repro_torch.configs import base as cfgs
 from repro_torch.configs.base import GNNConfig, RecsysConfig
 from repro_torch.data.pipeline import zipf_ids
 from repro_torch.graph import sampler
 from repro_torch.nn import gnn as gnn_mod
 from repro_torch.nn import recsys as recsys_mod
+from repro_torch.nn import transformer as tfm
 from repro_torch.serve.cache import CacheConfig, EmbeddingCache
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import (
@@ -237,6 +242,134 @@ class GNNServeEngine(_EngineBase):
         out = gnn_mod.apply(self.params, self.cfg, batch)
         seeds = torch.from_numpy(blocks.seeds_local).to(dev)
         return out.index_select(0, seeds).cpu().numpy()   # waits for the device
+
+
+def _lm_config(arch: str, smoke: bool):
+    cfg = cfgs.get_arch(arch)
+    return cfgs.reduced(cfg) if smoke else cfg
+
+
+def _greedy(params, cfg, tokens: torch.Tensor, max_len: int, steps: int) -> torch.Tensor:
+    """(w, prefill) prompts on the params' device -> (w, steps) greedy
+    continuation, still on the device: prefill, then ``steps - 1`` decode
+    steps, each feeding back the first maximum of its logits (as
+    ``jnp.argmax``)."""
+    logits, cache = tfm.prefill(params, cfg, tokens, max_len=max_len)
+    tok = torch.argmax(logits, dim=-1)
+    out = [tok]
+    for _ in range(steps - 1):
+        logits, cache = tfm.decode_step(params, cfg, cache, tok)
+        tok = torch.argmax(logits, dim=-1)
+        out.append(tok)
+    return torch.stack(out, dim=1).to(torch.int32)
+
+
+class LMServeEngine(_EngineBase):
+    """Transformer prefill+decode serving behind the continuous batcher.
+
+    Request payload: ``{"tokens": (<=prefill,) int prompt ids}``; result:
+    ``(decode,)`` int32 greedily-decoded ids. Prompts are clipped to the
+    last ``prefill`` tokens and to ``vocab - 1``, and left-padded with
+    token 0, so every batch has one ``(max_batch, prefill)`` shape.
+    ``params`` (the ``nn.transformer`` tree, e.g. from
+    ``convert.lm_params_from_numpy``) are placed on ``device``; by default
+    they are drawn from seed 0 on ``device``. The forward ends in one host
+    copy of the tokens.
+    """
+
+    def __init__(
+        self,
+        arch: str = "minitron-8b",
+        smoke: bool = True,
+        sched_config: Optional[SchedulerConfig] = None,
+        prefill: int = 64,
+        decode: int = 32,
+        params: Optional[Dict] = None,
+        metrics: Optional[ServeMetrics] = None,
+        clock=time.monotonic,
+        service_model=None,
+        device: str | torch.device = devices.DEFAULT_DEVICE,
+    ) -> None:
+        self.device = devices.resolve(device)
+        self.cfg = _lm_config(arch, smoke)
+        self.prefill_len = int(prefill)
+        self.decode_len = int(decode)
+        self.metrics = metrics if metrics is not None else ServeMetrics()
+        sched_config = sched_config if sched_config is not None else SchedulerConfig()
+        self.batcher = ContinuousBatcher(sched_config, clock=clock,
+                                         metrics=self.metrics)
+        self._width = sched_config.max_batch
+        self.service_model = service_model
+        self.params = (tfm.to_device(params, self.device) if params is not None
+                       else tfm.init(torch.Generator(device=self.device).manual_seed(0), self.cfg,
+                                     device=self.device))
+
+    def _generate(self, tokens: np.ndarray) -> np.ndarray:
+        """(w, prefill) int32 -> (w, decode) int32 greedy continuation."""
+        out = _greedy(self.params, self.cfg, torch.from_numpy(tokens).to(self.device),
+                      self.prefill_len + self.decode_len, self.decode_len)
+        return out.cpu().numpy()   # waits for the device
+
+    def forward(self, payloads: List[Dict]) -> np.ndarray:
+        n = len(payloads)
+        toks = np.zeros((self._width, self.prefill_len), np.int32)
+        for i, p in enumerate(payloads):
+            t = np.asarray(p["tokens"], np.int32).ravel()[-self.prefill_len:]
+            t = np.clip(t, 0, self.cfg.vocab - 1)
+            toks[i, self.prefill_len - t.size:] = t
+        out = self._generate(toks)
+        self.metrics.count("tokens_generated", n * self.decode_len)
+        return out[:n]
+
+    def warmup(self) -> None:
+        """Run prefill+decode once at the canonical batch shape (library
+        handles, allocator pools) without touching metrics."""
+        self._generate(np.zeros((self._width, self.prefill_len), np.int32))
+
+
+# ---------------------------------------------------------------------------
+# LM prefill+decode loop (the serve CLI's --engine lm)
+# ---------------------------------------------------------------------------
+def lm_loop(arch: str = "starcoder2-7b", smoke: bool = True, requests: int = 16,
+            batch: int = 8, prefill: int = 64, decode: int = 32,
+            device: str | torch.device = devices.DEFAULT_DEVICE) -> Dict:
+    """Batched prefill+decode serving loop for the transformer archs, on
+    ``device`` with parameters drawn from seed 0 there.
+
+    Prompts are Zipf ids from ``np.random.default_rng(0)``. The final
+    batch computes exactly the remaining ``n`` sequences and the report
+    counts only tokens actually served, so a partial batch does not
+    inflate tok/s or batch latency with padded work. Each batch's latency
+    ends with the host copy of its tokens.
+    """
+    dev = devices.resolve(device)
+    cfg = _lm_config(arch, smoke)
+    rng = np.random.default_rng(0)
+    params = tfm.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+
+    done, toks_served, t0 = 0, 0, time.perf_counter()
+    lat = []
+    while done < requests:
+        n = min(batch, requests - done)
+        tokens = zipf_ids(rng, (n, prefill), cfg.vocab)
+        t1 = time.perf_counter()
+        _greedy(params, cfg, torch.from_numpy(tokens).to(dev), prefill + decode,
+                decode).cpu()
+        lat.append(time.perf_counter() - t1)
+        done += n
+        toks_served += n * decode
+    dt = time.perf_counter() - t0
+    stats = {
+        "requests": requests,
+        "tokens": toks_served,
+        "tok_s": toks_served / dt,
+        "p50_ms": float(np.percentile(lat, 50) * 1e3),
+        "p99_ms": float(np.percentile(lat, 99) * 1e3),
+    }
+    print(f"[serve] {requests} requests, {toks_served} tokens in {dt:.2f}s "
+          f"({stats['tok_s']:.1f} tok/s); batch latency p50="
+          f"{stats['p50_ms']:.0f}ms p99={stats['p99_ms']:.0f}ms")
+    return stats
 
 
 # ---------------------------------------------------------------------------

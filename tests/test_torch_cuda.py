@@ -739,3 +739,53 @@ def test_compressed_psum_on_card_matches_cpu(nccl_group):
         out[label] = rounds
     for a, b in zip(tree_leaves(out["card"]), tree_leaves(out["cpu"])):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minitron-8b", "starcoder2-7b", "nemotron-4-340b"])
+def test_lm_on_card_matches_cpu(cuda, arch):
+    """A reduced dense LM config's forward, prefill (logits and KV cache)
+    and 4 decode steps on the card against the CPU on the same weights,
+    within tests/test_torch_lm.py's MODEL_TOL (rtol = atol = 2e-2) for
+    logits and its CACHE_TOL (rtol 0.06, atol 5e-2) for the cache."""
+    from repro_torch.configs import base
+    from repro_torch.nn import transformer as tfm
+
+    cfg = base.reduced(base.get_arch(arch))
+    params = tfm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = tfm.to_device(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, (4, 16)))
+    logit_tol, cache_tol = dict(rtol=2e-2, atol=2e-2), dict(rtol=0.06, atol=5e-2)
+    torch.testing.assert_close(tfm.forward(card, cfg, tokens.to(cuda))[0].cpu(),
+                               tfm.forward(params, cfg, tokens)[0], **logit_tol)
+    want, wc = tfm.prefill(params, cfg, tokens[:, :12], max_len=16)
+    got, gc = tfm.prefill(card, cfg, tokens[:, :12].to(cuda), max_len=16)
+    torch.testing.assert_close(got.cpu(), want, **logit_tol)
+    torch.testing.assert_close(gc.k.cpu().float(), wc.k.float(), **cache_tol)
+    for t in range(12, 16):
+        want, wc = tfm.decode_step(params, cfg, wc, tokens[:, t])
+        got, gc = tfm.decode_step(card, cfg, gc, tokens[:, t].to(cuda))
+        assert got.device == gc.k.device and gc.length == wc.length == t + 1
+        torch.testing.assert_close(got.cpu(), want, **logit_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k,capacity_factor", [(1, 1.25), (2, 0.5)])
+def test_moe_on_card_matches_cpu(cuda, top_k, capacity_factor):
+    """The MoE layer on equal inputs: the same picks kept and dropped (the
+    sentinel row takes every dropped pick's write, so the card's order of
+    duplicate writes cannot show), outputs within one bfloat16 product's
+    tolerance (1e-2), the aux loss within 1e-6."""
+    from repro_torch.nn import layers as L
+
+    params = L.moe_init(torch.Generator().manual_seed(3), 64, 128, 4, True)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((48, 64)).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    want, wa = L.moe(params, x, top_k, capacity_factor=capacity_factor)
+    got, ga = L.moe({k: v.to(cuda) if torch.is_tensor(v) else {"w": v["w"].to(cuda)}
+                     for k, v in params.items()}, x.to(cuda), top_k,
+                    capacity_factor=capacity_factor)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu() == 0, want == 0)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(ga.cpu(), wa, rtol=1e-6, atol=1e-6)

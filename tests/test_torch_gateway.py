@@ -181,8 +181,8 @@ def test_server_score_roundtrip_matches_dense_reference():
 
 
 def test_server_generate_roundtrip_deterministic():
-    # a deterministic stub stands in for the LM engine, which the port does
-    # not have yet; this test moves to the real engine with the LM slice
+    # a deterministic stub exercises the route alone; the same test over the
+    # port's LMServeEngine is in test_torch_lm_serve.py
     eng = GenerateStubEngine(sched=SchedulerConfig(max_batch=2, max_queue=8), decode=4)
     prompt = [1, 2, 3, 4, 5]
     with GatewayServer({"generate": EnginePump(eng, "generate")}) as server:

@@ -130,23 +130,49 @@ def test_serving_entry_points_without_device_raise_without_cuda(monkeypatch):
 def test_serve_gateway_without_device_raises_without_cuda(monkeypatch):
     """The serve CLI's --gateway builds its engine on --device (default
     cuda): without a card it raises devices.resolve's error before any
-    server starts, unless --device cpu; --engine lm raises with or without
-    the gateway (the LM stack is not ported yet)."""
+    server starts, for either engine, unless --device cpu."""
     import threading
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.launch import serve as serve_cli
 
     threads = threading.active_count()
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        serve_cli.main(["--engine", "recsys", "--gateway", "127.0.0.1:0"])
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        serve_cli.main(["--engine", "recsys", "--gateway", "127.0.0.1:0", "--device", "cuda:0"])
-    for argv in (["--engine", "lm", "--gateway", "127.0.0.1:0"],
-                 ["--engine", "lm", "--gateway", "127.0.0.1:0", "--device", "cpu"]):
-        with pytest.raises(NotImplementedError, match="LM stack"):
-            serve_cli.main(argv)
+    for engine in ("recsys", "lm"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve_cli.main(["--engine", engine, "--gateway", "127.0.0.1:0"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve_cli.main(["--engine", engine, "--gateway", "127.0.0.1:0", "--device", "cuda:0"])
     assert threading.active_count() == threads       # no server was started
+
+
+def test_lm_entry_points_without_device_raise_without_cuda(monkeypatch):
+    """The LM's entry points default to the card and raise without one;
+    each runs on the CPU only when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.configs import base
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.nn import transformer
+    from repro_torch.serve import engine
+
+    cfg = base.reduced(base.get_arch("minitron-8b"))
+    params = transformer.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    as_numpy = {"embed": params["embed"].numpy(), "ln_f": {"g": np.ones(4, np.float32)}}
+    for build in (lambda **kw: transformer.init(torch.Generator().manual_seed(0), cfg, **kw),
+                  lambda **kw: transformer.init_cache(cfg, 1, 4, **kw),
+                  lambda **kw: engine.LMServeEngine(prefill=4, decode=2, **kw),
+                  lambda **kw: engine.LMServeEngine(prefill=4, decode=2, params=params, **kw),
+                  lambda **kw: engine.lm_loop(requests=1, batch=1, prefill=4, decode=2, **kw),
+                  lambda **kw: convert.lm_params_from_numpy(as_numpy, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+        build(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_cli.main(["--engine", "lm", "--requests", "1"])
+    assert transformer.prefill(params, cfg, torch.zeros((1, 4), dtype=torch.int32))[0].device.type \
+        == "cpu"
 
 
 def test_kernel_wrappers_refuse_meta_tensors():

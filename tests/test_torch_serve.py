@@ -546,9 +546,8 @@ def test_launch_serve_cli_recsys(tmp_path):
     assert json.loads(out.read_text())["counters"] == snap["counters"]
     want = j_cli.main(argv)
     assert snap["counters"] == want["counters"] and snap["config"] == want["config"]
-    # --gateway serves (tests/test_torch_gateway.py); the LM engine waits
-    # for its slice, with or without the gateway
-    for argv2 in (["--engine", "lm", "--device", "cpu"],
-                  ["--engine", "lm", "--gateway", "127.0.0.1:0", "--device", "cpu"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_cli.main(argv2)
+    # --gateway serves (tests/test_torch_gateway.py and, for the LM engine,
+    # tests/test_torch_lm_serve.py); the local LM loop counts what it served
+    stats = t_cli.main(["--engine", "lm", "--device", "cpu", "--requests", "3", "--batch", "2",
+                        "--prefill", "8", "--decode", "2"])
+    assert stats["requests"] == 3 and stats["tokens"] == 6

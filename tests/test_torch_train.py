@@ -194,9 +194,19 @@ def test_batches_and_make_batch_fn_match_jax():
                 np.testing.assert_array_equal(got[k], want[k])
         np.testing.assert_array_equal(next(j_it)["hist"], want["hist"])
     assert not np.array_equal(t_fn(0)["hist"], t_fn(1)["hist"])
-    with pytest.raises(NotImplementedError):
-        t_fn_lm = t_pipe.make_batch_fn("lm", None, None)
-        t_fn_lm(0)
+    # the "lm" kind (once raising here) draws the JAX package's LM batches
+    lm = [t_cfgs.reduced(t_cfgs.get_arch("minitron-8b")),
+          j_cfgs.reduced(j_cfgs.get_arch("minitron-8b"))]
+    t_lm = t_pipe.make_batch_fn("lm", lm[0], t_cfgs.LMShape("s", "train", 16, 4), seed=3)
+    j_lm = j_pipe.make_batch_fn("lm", lm[1], j_cfgs.LMShape("s", "train", 16, 4), seed=3)
+    t_lm_it = t_pipe.batches("lm", lm[0], t_cfgs.LMShape("s", "train", 16, 4), seed=3)
+    for step in range(2):
+        want = j_lm(step)
+        for got in (t_lm(step), next(t_lm_it)):
+            assert sorted(got) == sorted(want) == ["labels", "tokens"]
+            for k in want:
+                assert got[k].dtype == want[k].dtype
+                np.testing.assert_array_equal(got[k], want[k])
     with pytest.raises(ValueError):
         t_pipe.make_batch_fn("gnn", T_CFG, t_shape)(0)
 
