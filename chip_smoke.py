@@ -142,7 +142,30 @@ Phases, each of which must pass:
      by layer on the CPU's hidden states over the tokens both route alike
      (at least 90%); (f)
      ``python -m repro_torch.launch.serve --engine lm`` on the card, then
-     with ``--gateway``: one /v1/generate, SIGINT, exit 0.
+     with ``--gateway``: one /v1/generate, SIGINT, exit 0;
+ 15. LM training (nn.transformer.loss_fn, launch.steps.lm_train_step, the
+     donated optimizer update, Trainer, launch.train), which launches no
+     kernel either (the counts stay 0), after phase 14's tensors are gone:
+     (a) minitron-8b at its published width, 4 of 32 layers (per-layer
+     remat), on train_4k's 4,096 positions at a global batch of 8 (8
+     microbatches of one sequence): the donated step (AdamW, float32
+     moments), one warm-up and 3 timed steps by CUDA events, with ms a
+     step, tokens/s, MFU (launch.roofline.model_flops_for over the step at
+     roofline.PEAK_FLOPS), analytic_lm_terms' bound and the step's
+     fraction of it, peak memory against the 16 B a parameter of state,
+     and one microbatch's busy share and top kernels under torch.profiler;
+     finite losses; (b) 1 layer at full width on the card against the CPU
+     on 2 x 128 positions: the loss within 1e-3 and every gradient leaf
+     within 5e-2 of its largest entry (tests/test_torch_lm_train.py's
+     bounds against the JAX package), beside the CPU's own gradients under
+     1e-7 relative noise on the embedding; (c) under deterministic
+     algorithms, donated against undonated Trainer.fit steps for SGD,
+     AdamW (float32 and bfloat16 moments) and Adafactor, and a donated fit
+     with two injected failures against a clean one, bit for bit; (d)
+     examples/train_lm_torch.py (300 steps, a failure at 120): the loss
+     falls; (e) ``python -m repro_torch.launch.train --smoke --steps 10
+     --fail-at 4 --ckpt DIR`` in a subprocess: exit 0, a checkpoint of
+     step 10.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
@@ -258,6 +281,24 @@ LM_TF_TOL = dict(rtol=0.06, atol=5e-2)     # tests/test_nn.py::test_decode_match
 # (2.7% of the largest); at full width they reach ~6 and the bfloat16
 # roundings scale with them, so the bound is 2% of the largest CPU logit
 LM_CPU_REL = 2e-2
+# phase 15: LM training. minitron-8b at published width on train_4k's
+# 4,096 positions, cut to 4 of its 32 layers and a global batch of 8 (of
+# 256). Below 8e9 parameters for_arch gives float32 moments, so the
+# parameters, the two moments and the gradient sum take 16 B a parameter:
+# 44.8 GB at 4 layers, 124 GB at 32. A batch of 8 is what the cell makes of
+# its 8 microbatches on one card: one sequence each. The card-vs-CPU check
+# at 1 layer and 2 x 128 positions; donation and restarts bit for bit at
+# examples/train_lm.py's width.
+LM_TRAIN_LAYERS = 4
+LM_TRAIN_BATCH = 8
+LM_TRAIN_TIMED = 3
+LM_TRAIN_CPU_LAYERS = 1
+LM_TRAIN_CPU_BATCH, LM_TRAIN_CPU_SEQ = 2, 128
+# tests/test_torch_lm_train.py's bounds of the port against the JAX package
+# (another implementation's roundings of the same bfloat16 products)
+LM_TRAIN_LOSS_ATOL = 1e-3
+LM_TRAIN_GRAD_REL = 5e-2
+LM_TRAIN_SMALL = dict(n_layers=2, d_model=256, n_heads=8, n_kv=4, d_ff=1024, vocab=4096)
 
 
 def card_line() -> str:
@@ -2776,7 +2817,7 @@ def lm_weight_bytes(params) -> tuple[float, float]:
     return cast + 4 * head, held + 2 * head
 
 
-def profile_top(fn, top: int = 6) -> tuple[float, float, str]:
+def profile_top(fn, top: int = 6, width: int = 60) -> tuple[float, float, str]:
     """(device busy ms, host wall ms, the kernel count and the top kernels
     by device time) of ``fn`` under torch.profiler, in a window padded by
     ``spin_pad``."""
@@ -2798,7 +2839,7 @@ def profile_top(fn, top: int = 6) -> tuple[float, float, str]:
                      key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     tops = (f"{sum(e.count for e in kernels)} kernels; "
-            + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+            + "; ".join(f"{e.key[:width]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
                         for e in kernels[:top]))
     return busy, wall, tops
 
@@ -3250,6 +3291,278 @@ def run_lm_serving(dev) -> None:
         fail(f"LM serving launched a kernel: {launched}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: LM training (loss_fn, lm_train_step, donation, Trainer, the CLI)
+# ---------------------------------------------------------------------------
+def lm_train_cfg(n_layers: int):
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+
+    return dataclasses.replace(get_arch(LM_ARCH), n_layers=n_layers)
+
+
+def lm_train_full(dev) -> None:
+    """Phase 15 (a): minitron-8b at its published width, LM_TRAIN_LAYERS of
+    32 layers (per-layer remat, as its config has it), train_4k's 4,096
+    positions at a global batch of LM_TRAIN_BATCH: launch.steps.
+    lm_train_step's donated step (for_arch: AdamW, float32 moments) over
+    seeded lm_batch batches, one warm-up step and LM_TRAIN_TIMED timed by
+    CUDA events. Prints ms a step, tokens/s, MFU (roofline.model_flops_for
+    over the step over roofline.PEAK_FLOPS), analytic_lm_terms' bound and
+    the step's fraction of it, peak memory against the state's count, and
+    one microbatch's busy share and top kernels under torch.profiler."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.launch import roofline
+    from repro_torch.launch.steps import lm_train_step
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.train.optimizer import for_arch
+    from repro_torch.train.trainer import batch_to, value_and_grad
+
+    cfg = lm_train_cfg(LM_TRAIN_LAYERS)
+    shape = dataclasses.replace(LM_SHAPES["train_4k"], global_batch=LM_TRAIN_BATCH)
+    n, opt = cfg.param_count(), for_arch(cfg)
+    mb = max(min(cfg.microbatches, shape.global_batch), 1)
+    print(f"lm train (a): {cfg.name} at {cfg.n_layers} of 32 layers (d {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}), {n:,} parameters; {opt.name} with "
+          f"{opt.moment_dtype} moments, donated; seq {shape.seq_len}, global batch "
+          f"{shape.global_batch} in {mb} microbatches; remat {cfg.remat}; parameters, moments "
+          f"and the gradient sum {16 * n / 1e9:.2f} GB ({16 * n / 2**30:.2f} GiB)")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tfm.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    opt_init, step = lm_train_step(cfg, shape, device=dev)
+    state = opt_init(params)
+    rng = np.random.default_rng(15)
+    batches = [lm_batch(rng, cfg, shape.global_batch, shape.seq_len)
+               for _ in range(1 + LM_TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    print(f"lm train (a): weights drawn on the card and {len(batches)} batches on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    losses, ms, wall = [], [], []
+    for i, b in enumerate(batches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        params, state, metrics = step(params, state, b)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(metrics["loss"]))
+        if i:
+            wall.append((time.perf_counter() - t0) * 1e3)
+            ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_s = statistics.median(ms) / 1e3
+    tokens = shape.global_batch * shape.seq_len
+    flops = roofline.model_flops_for(cfg, shape)
+    terms = roofline.analytic_lm_terms(cfg, shape, num_devices=1, n_model=1)
+    t_ops = terms["flops_per_dev"] / roofline.PEAK_FLOPS
+    t_bytes = terms["hbm_bytes_per_dev"] / roofline.HBM_BW
+    bound_s = max(t_ops, t_bytes)
+    print(f"lm train (a): step ms (CUDA events) {[round(x, 3) for x in ms]}, median "
+          f"{step_s * 1e3:.3f} (host wall {[round(x, 3) for x in wall]}); {tokens / step_s:,.1f} "
+          f"tokens/s; MFU {flops / step_s / roofline.PEAK_FLOPS:.4f} (model_flops_for "
+          f"{flops:.4e} FLOP over the step at {roofline.PEAK_FLOPS:.4g} FLOP/s); "
+          f"analytic_lm_terms: {terms['flops_per_dev']:.4e} FLOP ({t_ops * 1e3:.3f} ms), "
+          f"{terms['hbm_bytes_per_dev']:.4e} B ({t_bytes * 1e3:.3f} ms), bound {bound_s * 1e3:.3f} "
+          f"ms by {'operations' if t_ops >= t_bytes else 'bytes'}, the step at "
+          f"{bound_s / step_s:.4f} of it; peak {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} "
+          f"above the earlier phases' tensors; the state {16 * n / 2**30:.2f} GiB, the card "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f} GiB); losses "
+          f"{[round(x, 6) for x in losses]}")
+    if not np.isfinite(losses).all():
+        fail(f"lm train (a): losses {losses}")
+    part = batch_to({k: v[:shape.global_batch // mb] for k, v in batches[0].items()}, dev)
+    busy, wall_p, tops = profile_top(lambda: value_and_grad(tfm.loss_fn, params, cfg, part),
+                                     top=10, width=160)
+    print(f"lm train (a): one microbatch's loss and gradients under torch.profiler: wall "
+          f"{wall_p:.3f} ms, device busy {busy:.3f} ms (share {busy / wall_p:.4f}); {tops}")
+
+
+def lm_train_card_vs_cpu(dev) -> None:
+    """Phase 15 (b): minitron-8b at its published width, LM_TRAIN_CPU_LAYERS
+    layer, on the card against the same weights on the CPU: the loss and
+    every gradient of one microbatch of LM_TRAIN_CPU_BATCH x
+    LM_TRAIN_CPU_SEQ positions, within tests/test_torch_lm_train.py's
+    bounds of the port against the JAX package (LM_TRAIN_LOSS_ATOL, each
+    leaf within LM_TRAIN_GRAD_REL of its largest entry). Beside them it
+    prints how far the CPU's own gradients move when the embedding table is
+    nudged by 1e-7 relative (an ulp of noise), as phase 11 (a) does."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.train.trainer import batch_to, value_and_grad
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = lm_train_cfg(LM_TRAIN_CPU_LAYERS)
+    cpu = torch.device("cpu")
+    card = tfm.init(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+    host = tree_map(lambda t: t.cpu(), card)
+    b = lm_batch(np.random.default_rng(16), cfg, LM_TRAIN_CPU_BATCH, LM_TRAIN_CPU_SEQ)
+    loss_d, grads_d = value_and_grad(tfm.loss_fn, card, cfg, batch_to(b, dev))
+    t0 = time.perf_counter()
+    loss_c, grads_c = value_and_grad(tfm.loss_fn, host, cfg, batch_to(b, cpu))
+    cpu_s = time.perf_counter() - t0
+    rel = leaf_relative(tree_errors(grads_d, grads_c), grads_c)
+    del grads_d
+    # the rows the batch reads, nudged: the others do not reach the loss
+    rows = torch.from_numpy(np.unique(b["tokens"])).long()
+    embed = host["embed"].clone()
+    embed[rows] *= 1 + 1e-7 * torch.randn((len(rows), cfg.d_model),
+                                          generator=torch.Generator().manual_seed(17))
+    loss_n, grads_n = value_and_grad(tfm.loss_fn, dict(host, embed=embed), cfg,
+                                     batch_to(b, cpu))
+    noise = max(leaf_relative(tree_errors(grads_n, grads_c), grads_c))
+    finite = bool(torch.isfinite(loss_d)) and all(bool(torch.isfinite(g).all())
+                                                  for g in tree_leaves(grads_c))
+    err = abs(float(loss_d) - float(loss_c))
+    print(f"lm train (b): {cfg.n_layers} layer at full width, {LM_TRAIN_CPU_BATCH} x "
+          f"{LM_TRAIN_CPU_SEQ} positions: loss card {float(loss_d):.6f} CPU {float(loss_c):.6f} "
+          f"(diff {err:.3e}, bound {LM_TRAIN_LOSS_ATOL}); gradients: largest max abs diff over "
+          f"the leaf's largest entry {max(rel):.3e} (bound {LM_TRAIN_GRAD_REL}; per leaf "
+          f"{[f'{x:.2e}' for x in rel]}); the CPU's own under 1e-7 relative noise on the "
+          f"embedding: loss {abs(float(loss_n) - float(loss_c)):.3e}, gradients {noise:.3e}; "
+          f"the CPU's loss and gradients took {cpu_s:.1f} s")
+    if not finite or err > LM_TRAIN_LOSS_ATOL or max(rel) > LM_TRAIN_GRAD_REL:
+        fail("lm train (b): the card differs from the CPU")
+
+
+def lm_train_donation(dev) -> None:
+    """Phase 15 (c): on the card, under torch.use_deterministic_algorithms,
+    Trainer.fit with 2 microbatches on examples/train_lm.py's minitron
+    width at 2 layers (4 x 256 positions a step), donated against not donated, 3 steps each for SGD,
+    AdamW with float32 and with bfloat16 moments, and Adafactor: the same
+    history and final state bit for bit; then a donated fit of 6 steps with
+    checkpoints every 2 (under build/) and failures at steps 3 and 4:
+    two restarts, and a clean fit's history and state bit for bit."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import LMShape, get_arch, reduced
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.train.ft import FailureInjector
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = dataclasses.replace(reduced(get_arch(LM_ARCH)), **LM_TRAIN_SMALL)
+    batch_fn = make_batch_fn("lm", cfg, LMShape("t", "train", 256, 4), seed=5)
+    opts = {"sgd": OptConfig(name="sgd", lr=1e-2), "adamw f32": OptConfig(lr=1e-3),
+            "adamw bf16": OptConfig(lr=1e-3, moment_dtype="bfloat16"),
+            "adafactor": OptConfig(name="adafactor", lr=1e-2)}
+
+    def fit(opt, donate: bool, steps: int = 3, injector=None, **ckpt):
+        tr = Trainer(lambda p, b: tfm.loss_fn(p, cfg, b),
+                     lambda: tfm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                                      device=dev),
+                     opt, TrainerConfig(num_steps=steps, microbatches=2, log_every=1,
+                                        donate=donate, **ckpt), device=dev)
+        with contextlib.redirect_stdout(io.StringIO()):
+            return tr, tr.fit(batch_fn, injector=injector)
+
+    def bits(a, b) -> bool:
+        return all(x.dtype == y.dtype and same_bits(x, y)
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    def runs():
+        out = {}
+        for name, opt in opts.items():
+            (d_tr, d_state), (u_tr, u_state) = fit(opt, True), fit(opt, False)
+            out[name] = (d_tr.history == u_tr.history and bits(d_state, u_state),
+                         d_tr.history[-1]["loss"])
+        clean, clean_state = fit(opts["adamw f32"], True, steps=6)
+        scratch = os.path.join(ROOT, "build")
+        os.makedirs(scratch, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=scratch) as d:
+            faulty, state = fit(opts["adamw f32"], True, steps=6, ckpt_dir=d, ckpt_every=2,
+                                injector=FailureInjector(fail_at=(3, 4)))
+        replay = ({h["step"]: h for h in faulty.history} == {h["step"]: h for h in clean.history}
+                  and bits(state, clean_state))
+        return out, faulty.restarts, replay
+
+    (out, restarts, replay), refused = deterministic(runs)
+    print(f"lm train (c): {cfg.param_count():,} parameters; donated vs not, 3 steps "
+          f"(deterministic {'no: ' + refused if refused else 'yes'}): "
+          + "; ".join(f"{k} {'the same bits' if same else 'DIFFERENT'} (loss {l:.6f})"
+                      for k, (same, l) in out.items())
+          + f"; a donated fit with failures at steps 3 and 4: {restarts} restarts, "
+          f"{'the clean fit bit for bit' if replay else 'DIFFERENT from the clean fit'}")
+    if not all(same for same, _ in out.values()) or restarts != 2 or not replay:
+        fail("lm train (c): donation or a restart changed a bit")
+
+
+def lm_train_example(dev) -> None:
+    """Phase 15 (d): examples/train_lm_torch.py on the card (300 steps of
+    examples/train_lm.py's 5.0M-parameter minitron, a failure at step
+    120): the loss falls."""
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import train_lm_torch
+
+    losses = train_lm_torch.main(["--device", str(dev)])
+    print(f"lm train (d): examples/train_lm_torch.py: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not losses[-1] < losses[0]:
+        fail("lm train (d): the example's loss did not fall")
+
+
+def lm_train_cli(dev) -> None:
+    """Phase 15 (e): ``python -m repro_torch.launch.train --smoke --steps 10
+    --fail-at 4 --ckpt DIR`` on the card in a subprocess: exit 0, the
+    reference's closing line, a checkpoint of step 10."""
+    import tempfile
+
+    from repro_torch.train import checkpoint
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+                               "--steps", "10", "--fail-at", "4", "--ckpt", d],
+                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        last = checkpoint.latest_step(d)
+    done = [line for line in proc.stdout.splitlines() if line.startswith("[train] done")]
+    print(f"lm train (e): the train CLI exit {proc.returncode}: {done}, last checkpoint {last}")
+    if proc.returncode != 0 or len(done) != 1 or last != 10:
+        fail(f"lm train (e): {proc.stdout} {proc.stderr}")
+
+
+def run_lm_training(dev) -> None:
+    """Phase 15: LM training, which launches no kernel of the port (the JAX
+    package's loss and step reach no pallas_call): K1's, K2's and K3's
+    launch counts are 0 at its start and still 0 at its end."""
+    import torch
+
+    torch.empty(0, device=dev)
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    phase("15a (minitron-8b train step at 4 of 32 layers)", lm_train_full, dev)
+    torch.cuda.empty_cache()
+    phase("15b (minitron-8b, card vs CPU at 1 layer)", lm_train_card_vs_cpu, dev)
+    torch.cuda.empty_cache()
+    phase("15c (donation and restarts on the card)", lm_train_donation, dev)
+    phase("15d (examples/train_lm_torch.py)", lm_train_example, dev)
+    phase("15e (the train CLI)", lm_train_cli, dev)
+    launched = {c.__name__: c.launches for c in counters}
+    print(f"LM training: kernel launches {launched}")
+    if any(launched.values()):
+        fail(f"LM training launched a kernel: {launched}")
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -3366,6 +3679,8 @@ def main() -> int:
     del real_graph, qs_graph
     torch.cuda.empty_cache()
     phase("14 (LM serving)", run_lm_serving, dev)
+    torch.cuda.empty_cache()
+    phase("15 (LM training)", run_lm_training, dev)
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

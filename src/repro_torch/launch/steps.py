@@ -1,6 +1,8 @@
-"""Train steps of the GNN and recsys cells, composed as the JAX package's
-``launch/steps.py`` composes them: the loss and its gradients
-(``trainer.value_and_grad``), then AdamW at lr 1e-3.
+"""Train steps of the LM, GNN and recsys cells, composed as the JAX
+package's ``launch/steps.py`` composes them: the loss and its gradients
+(``trainer.value_and_grad``, or ``trainer.grad_sum`` over the LM's
+microbatches), then the optimizer (AdamW at lr 1e-3, or the LM's
+``for_arch`` choice).
 
 Each builder returns ``(opt_init, step)`` with ``step(params, opt_state,
 batch) -> (new_params, new_state, {"loss": loss})``; the batch goes to the
@@ -8,7 +10,7 @@ builder's device. ``gin`` with ``grasp`` on ``ogb_products`` builds the
 GRASP-partitioned step instead (``dist.collectives``: hot rows replicated,
 cold rows owned, a halo exchange) over an initialised process group, and
 also returns the partition's spec. Only what training needs is here: the
-abstract cells, shardings and ``dryrun`` stay with the LM stack.
+abstract cells, their shardings and ``dryrun`` wait for the mesh slice.
 
 ``gnn_loss`` reproduces the JAX package's loss exactly, including a state
 of it: GIN and PNA have ``cfg.d_out = 16`` logits, while the GNN batch
@@ -25,12 +27,14 @@ from typing import Dict
 import torch
 
 from repro_torch import devices
-from repro_torch.configs.base import GNNConfig, GNNShape, RecsysConfig
+from repro_torch.configs.base import GNNConfig, GNNShape, LMConfig, LMShape, RecsysConfig
 from repro_torch.kernels.embedding_bag.ref import lookup_ref
 from repro_torch.nn import gnn as gnn_mod
 from repro_torch.nn import recsys as recsys_mod
+from repro_torch.nn import transformer as tfm
 from repro_torch.train import optimizer as opt_mod
-from repro_torch.train.trainer import batch_to, value_and_grad
+from repro_torch.train.tree import tree_map
+from repro_torch.train.trainer import batch_to, grad_sum, split, value_and_grad
 
 N_CLASSES = 47  # ogbn-products label count
 
@@ -82,6 +86,43 @@ def energy_loss(energy: torch.Tensor, batch: Dict) -> torch.Tensor:
         e_graph = _segment_sum(energy, batch["graph_id"], labels.shape[0])
         return torch.mean((e_graph - labels) ** 2)
     return torch.mean(energy**2) * 1e-3  # full-graph: bounded synthetic target
+
+
+def lm_train_step(cfg: LMConfig, shape: LMShape,
+                  device: str | torch.device = devices.DEFAULT_DEVICE, donate: bool = True):
+    """The LM cell's step (the JAX package's ``_lm_train_cell`` on one
+    device): the optimizer ``for_arch(cfg)`` picks (Adafactor for
+    nemotron-4-340b), and gradients accumulated over ``mb = min(
+    cfg.microbatches, shape.global_batch)`` microbatches of the batch's
+    leading axis: float32 zeros plus each microbatch's gradient in order,
+    divided by ``mb``; the loss is the running sum of the microbatches'
+    losses over ``mb``. With ``donate`` (the cell's ``donate=(0, 1)``)
+    the step consumes the parameters and optimizer state it is given.
+    Returns ``(opt_init, step)``."""
+    dev = devices.resolve(device)
+    opt_init, opt_update = opt_mod.make(opt_mod.for_arch(cfg))
+    mb = max(min(cfg.microbatches, shape.global_batch), 1)   # one batch shard
+    if shape.global_batch % mb:
+        raise ValueError(f"{mb} microbatches do not divide a batch of {shape.global_batch}")
+
+    def loss(params, batch):
+        return tfm.loss_fn(params, cfg, batch)
+
+    def step(params, opt_state, batch):
+        batch = batch_to(batch, dev)
+        if mb == 1:
+            loss_value, grads = value_and_grad(loss, params, batch)
+        else:
+            losses, grads = grad_sum(loss, params, split(batch, mb))
+            grads = tree_map(lambda g: g.div_(mb), grads)
+            lsum = 0.0
+            for part in losses:
+                lsum = lsum + part
+            loss_value = lsum / mb
+        new_params, new_state = opt_update(grads, opt_state, params, donate=donate)
+        return new_params, new_state, {"loss": loss_value}
+
+    return opt_init, step
 
 
 def _adamw():

@@ -5,28 +5,34 @@ Parameters are the JAX package's tree: ``embed`` (V, d), ``layers`` (each
 per-layer leaf stacked on a leading ``L`` axis), ``ln_f`` and
 ``lm_head``, so ``train.tree``'s flatten order and
 ``train.checkpoint.restore`` read it as they read the JAX package's. The
-layers run in a Python loop over ``L``: the JAX package scans them, and its
-``remat`` and ``layer_groups`` only shape the backward, changing no value.
-Its ``constrain`` calls are sharding hints that do nothing on one device;
-the port leaves them out.
+layers run in a Python loop over ``L``: the JAX package scans them. Its
+``remat`` and ``layer_groups`` become ``torch.utils.checkpoint`` around
+each layer or group of layers, and its ``jax.checkpoint`` around each loss
+chunk the same around each chunk: they only shape the backward, changing
+no value. Its ``constrain`` calls are sharding hints that do nothing on
+one device; the port leaves them out.
 
 Entry points:
   init(gen, cfg, device=)                -> params
   forward(params, cfg, tokens)           -> (logits, aux loss)
+  loss_fn(params, cfg, batch)            -> scalar loss
   prefill(params, cfg, tokens, max_len)  -> (last logits, KVCache)
   decode_step(params, cfg, cache, token) -> (logits, KVCache)
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import devices
 from repro_torch.configs.base import LMConfig
 from repro_torch.nn import layers as L
-from repro_torch.train.tree import tree_map
+from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def _norm_init(cfg: LMConfig, d: int, lead: tuple = ()):
@@ -76,9 +82,31 @@ def layer_params(params, i: int):
     return tree_map(lambda a: a[i], params["layers"])
 
 
+def unbind_layers(params) -> list:
+    """Every layer's parameters, from one ``torch.unbind`` of each stacked
+    leaf: its backward is one ``stack``, where ``a[i]`` for each layer would
+    allocate a zero tensor the size of the whole stacked leaf per layer
+    (same gradient values)."""
+    rows = [torch.unbind(a, 0) for a in tree_leaves(params["layers"])]
+    return [tree_unflatten(params["layers"], [r[i] for r in rows])
+            for i in range(len(rows[0]) if rows else 0)]
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` where autograd
+    records: its intermediates are recomputed in the backward, not kept."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embedding rows in bfloat16. ``F.embedding``, not
+    ``embed[ids]``: the same rows, and its backward sums the rows'
+    gradients in one order run to run (``embed[ids]``'s ``index_put_``
+    does not on the CPU)."""
     ids = tokens.to(params["embed"].device)
-    return params["embed"][ids].to(torch.bfloat16)
+    return F.embedding(ids, params["embed"]).to(torch.bfloat16)
 
 
 def _attn_block(cfg: LMConfig, p, x: torch.Tensor, positions: torch.Tensor):
@@ -118,15 +146,31 @@ def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
+def _layers_fwd(cfg: LMConfig, lps: list, positions: torch.Tensor, x: torch.Tensor,
+                aux: torch.Tensor):
+    for lp in lps:
+        x, a, _ = _layer_fwd(cfg, lp, x, positions)
+        aux = aux + a
+    return x, aux
+
+
 def trunk(params, cfg: LMConfig, tokens: torch.Tensor):
-    """tokens (B, S) -> final hidden states (B, S, d) bf16, aux loss."""
+    """tokens (B, S) -> final hidden states (B, S, d) bf16, aux loss.
+
+    ``cfg.layer_groups > 1`` (dividing ``n_layers``) recomputes each group
+    of ``n_layers // layer_groups`` layers in the backward, keeping only
+    the groups' inputs; otherwise ``cfg.remat`` does so for each layer."""
     b, s = tokens.shape
     x = _embed(params, tokens)
     positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a, _ = _layer_fwd(cfg, layer_params(params, i), x, positions)
-        aux = aux + a
+    layers = unbind_layers(params)
+    groups = cfg.layer_groups
+    grouped = groups > 1 and cfg.n_layers % groups == 0
+    per = cfg.n_layers // groups if grouped else 1
+    for i in range(0, cfg.n_layers, per):
+        run = partial(_layers_fwd, cfg, layers[i:i + per], positions)
+        x, aux = _remat(run, x, aux) if grouped or cfg.remat else run(x, aux)
     return _norm(cfg, params["ln_f"], x), aux
 
 
@@ -135,6 +179,39 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor):
     Materialises the full logits: for small scale and checks."""
     x, aux = trunk(params, cfg, tokens)
     return L.dense(params["lm_head"], x, torch.float32), aux
+
+
+LOSS_CHUNK = 128  # sequence positions per cross-entropy chunk
+
+
+def _chunk_nll(head, xc: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
+    """The summed negative log-likelihood of one chunk: bfloat16 logits,
+    the max subtracted in bfloat16 (no gradient through it), float32
+    softmax statistics."""
+    logits = L.dense(head, xc, torch.bfloat16)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = (logits - m).to(torch.float32)
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+    tgt = shifted.gather(-1, lc[..., None])[..., 0]
+    return (lse - tgt).sum()
+
+
+def loss_fn(params, cfg: LMConfig, batch) -> torch.Tensor:
+    """Chunked cross-entropy: the (B, S, vocab) logits are never
+    materialised. The head's product and the softmax run per chunk of
+    ``LOSS_CHUNK`` positions, each recomputed in the backward rather than
+    kept; the chunks' sums are added in order, then ``total / (B*S) +
+    0.01 * aux``. A length the chunks do not tile raises, as the JAX
+    package's reshape fails."""
+    x, aux = trunk(params, cfg, torch.as_tensor(batch["tokens"]))
+    b, s, _ = x.shape
+    labels = torch.as_tensor(batch["labels"], device=x.device).long()
+    n_chunks, size = L._chunks(s, LOSS_CHUNK, "sequence")
+    total = 0.0
+    for i in range(n_chunks):
+        cut = slice(i * size, (i + 1) * size)
+        total = total + _remat(_chunk_nll, params["lm_head"], x[:, cut], labels[:, cut])
+    return total / (b * s) + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

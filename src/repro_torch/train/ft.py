@@ -118,6 +118,8 @@ def run_with_restarts(
                 state = step_fn(state, step)
                 watchdog.record(step, time.time() - t0)
                 if (step + 1) % ckpt_every == 0 or step + 1 == num_steps:
+                    # save copies every leaf to the host before it returns,
+                    # so a donated next step cannot change what is written
                     ckpt_mod.save(ckpt_dir, step + 1, state)
                     ckpt_mod.retain(ckpt_dir, keep=3)
             return RunResult(state, num_steps, restarts, watchdog.events)

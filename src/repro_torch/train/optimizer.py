@@ -10,8 +10,20 @@ over trees of tensors (``train.tree``; ``None`` leaves stay ``None`` in the
 state and are skipped). SGD's state is ``{"mu", "step"}``, AdamW's
 ``{"m", "v", "step"}``, Adafactor's ``{"v", "step"}`` with ``{"vr", "vc"}``
 (factored matrices) or ``{"v"}`` a parameter; ``step`` is an int32 scalar
-tensor on the parameters' device. Every update is out of place, so a
-caller's tensors are never changed, and runs under ``torch.no_grad()``.
+tensor on the parameters' device. Every update runs under
+``torch.no_grad()``.
+
+``update(..., donate=False)`` is out of place: the caller's tensors are
+never changed. ``update(..., donate=True)`` is the JAX package's donated
+step (``donate_argnums``): it consumes ``params`` and ``state``, writing
+each leaf's new value into the leaf's own tensor, and returns those
+tensors. Both compute every leaf with the same expression; the donated
+update applies it to one leaf at a time (SGD's and AdamW's elementwise
+expressions a slice of at most ``SLICE`` elements at a time) and
+``copy_``s the result in, so its temporaries are a slice's or a leaf's,
+not a whole tree's, and its values are the out-of-place update's bit for
+bit. The clipped gradient is computed per leaf inside the expression
+(``clipped``) rather than as a second tree.
 
 ``torch.optim`` is not used: its AdamW applies the weight decay before the
 Adam step (another rounding), its state is laid out differently and its
@@ -47,6 +59,9 @@ class OptConfig:
     factored_eps: float = 1e-30    # adafactor
 
 
+SLICE = 1 << 26  # elements of a donated elementwise update at a time (256 MiB of float32)
+
+
 def global_norm(grads: Any) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, the leaves
     added in flatten order."""
@@ -56,14 +71,23 @@ def global_norm(grads: Any) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float):
-    """(grads scaled by min(1, max_norm / norm), norm). A leaf comes back
-    in its dtype promoted with float32, as the JAX package's product with a
-    float32 scalar gives it."""
+def clip_scale(grads: Any, max_norm: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(min(1, max_norm / norm), norm) of the gradients' global norm."""
     gnorm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g.to(torch.promote_types(g.dtype, torch.float32)) * scale,
-                    grads), gnorm
+    return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0), gnorm
+
+
+def clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """One leaf scaled by ``clip_scale``'s factor, in its dtype promoted
+    with float32, as the JAX package's product with a float32 scalar
+    gives it."""
+    return g.to(torch.promote_types(g.dtype, torch.float32)) * scale
+
+
+def clip_by_global_norm(grads: Any, max_norm: float):
+    """(grads scaled by min(1, max_norm / norm), norm)."""
+    scale, gnorm = clip_scale(grads, max_norm)
+    return tree_map(lambda g: clipped(g, scale), grads), gnorm
 
 
 def _first_device(params) -> torch.device:
@@ -73,6 +97,23 @@ def _first_device(params) -> torch.device:
 
 def _step0(params) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=_first_device(params))
+
+
+def _apply(upd, outs: tuple, ins: tuple, donate: bool, elementwise: bool = True):
+    """``upd(*ins)`` for one leaf: returned, or with ``donate`` copied into
+    the tensors ``outs`` (and ``outs`` returned). An ``elementwise`` update
+    is computed over slices of the leading axis of at most ``SLICE``
+    elements, which gives each element the same arithmetic."""
+    if not donate:
+        return upd(*ins)
+    lead = outs[0]
+    rows = lead.shape[0] if lead.dim() else 1
+    per = max(1, SLICE // max(lead[0].numel(), 1)) if lead.dim() and elementwise else rows
+    for r in range(0, rows, per):
+        part = [t[r:r + per] for t in ins] if per < rows else ins
+        for dst, new in zip(outs, upd(*part)):
+            (dst[r:r + per] if per < rows else dst).copy_(new)
+    return outs
 
 
 def make(cfg: OptConfig):
@@ -90,10 +131,16 @@ def _make_sgd(cfg: OptConfig):
         return {"mu": tree_map(torch.zeros_like, params), "step": _step0(params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
-        grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
-        mu = tree_map(lambda m, g: cfg.momentum * m + g, state["mu"], grads)
-        new_params = tree_map(lambda p, m: p - cfg.lr * m, params, mu)
+    def update(grads, state, params, donate: bool = False):
+        scale, _ = clip_scale(grads, cfg.grad_clip)
+
+        def upd(p, g, m):
+            mu = cfg.momentum * m + clipped(g, scale)
+            return p - cfg.lr * mu, mu
+
+        outs = [_apply(upd, (p, m), (p, g, m), donate) for p, g, m in zip(
+            *(tree_leaves(t) for t in (params, grads, state["mu"])))]
+        new_params, mu = (tree_unflatten(params, [o[i] for o in outs]) for i in range(2))
         return new_params, {"mu": mu, "step": state["step"] + 1}
 
     return init, update
@@ -109,14 +156,14 @@ def _make_adamw(cfg: OptConfig):
         return {"m": tree_map(z, params), "v": tree_map(z, params), "step": _step0(params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
-        grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+    def update(grads, state, params, donate: bool = False):
+        scale, _ = clip_scale(grads, cfg.grad_clip)
         step = state["step"] + 1
         bc1 = 1.0 - cfg.b1 ** step.to(torch.float32)
         bc2 = 1.0 - cfg.b2 ** step.to(torch.float32)
 
         def upd(p, g, m, v):
-            gf = g.float()
+            gf = clipped(g, scale).float()
             m32 = cfg.b1 * m.float() + (1 - cfg.b1) * gf
             v32 = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
             mhat = m32 / bc1
@@ -124,9 +171,9 @@ def _make_adamw(cfg: OptConfig):
             delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p
             return p - cfg.lr * delta, m32.to(mdt), v32.to(mdt)
 
-        flat = [upd(*leaves) for leaves in zip(*(tree_leaves(t) for t in (
-            params, grads, state["m"], state["v"])))]
-        new_params, m, v = (tree_unflatten(params, [o[i] for o in flat]) for i in range(3))
+        outs = [_apply(upd, (p, m, v), (p, g, m, v), donate) for p, g, m, v in zip(
+            *(tree_leaves(t) for t in (params, grads, state["m"], state["v"])))]
+        new_params, m, v = (tree_unflatten(params, [o[i] for o in outs]) for i in range(3))
         return new_params, {"m": m, "v": v, "step": step}
 
     return init, update
@@ -148,32 +195,37 @@ def _make_adafactor(cfg: OptConfig):
         return {"v": tree_map(z, params), "step": _step0(params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
-        grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+    def update(grads, state, params, donate: bool = False):
+        scale, _ = clip_scale(grads, cfg.grad_clip)
         step = state["step"] + 1
         decay = 1.0 - step.to(torch.float32) ** -0.8
 
-        def upd(p, g, v):
-            gf = g.float()
+        def upd(p, g, *v):
+            gf = clipped(g, scale).float()
             g2 = gf * gf + cfg.factored_eps
             if _factored(p):
-                vr = decay * v["vr"] + (1 - decay) * g2.mean(dim=-1)
-                vc = decay * v["vc"] + (1 - decay) * g2.mean(dim=-2)
+                vr = decay * v[0] + (1 - decay) * g2.mean(dim=-1)
+                vc = decay * v[1] + (1 - decay) * g2.mean(dim=-2)
                 denom = (vr[..., :, None] * vc[..., None, :]
                          / torch.clamp(vr.mean(dim=-1)[..., None, None], min=1e-30))
                 pre = gf * torch.rsqrt(denom + cfg.factored_eps)
-                nv = {"vr": vr, "vc": vc}
+                nv = (vr, vc)
             else:
-                nv_ = decay * v["v"] + (1 - decay) * g2
-                pre = gf * torch.rsqrt(nv_ + cfg.factored_eps)
-                nv = {"v": nv_}
+                nv = (decay * v[0] + (1 - decay) * g2,)
+                pre = gf * torch.rsqrt(nv[0] + cfg.factored_eps)
             # update clipping (RMS <= 1) per Adafactor
             rms = torch.sqrt(torch.mean(pre * pre) + 1e-30)
             pre = pre / torch.clamp(rms, min=1.0)
-            return p - cfg.lr * (pre + cfg.weight_decay * p), nv
+            return (p - cfg.lr * (pre + cfg.weight_decay * p),) + nv
 
-        outs = [upd(p, g, v) for p, g, v in zip(
-            tree_leaves(params), tree_leaves(grads), flatten_up_to(params, state["v"]))]
+        outs = []
+        for p, g, v in zip(tree_leaves(params), tree_leaves(grads),
+                           flatten_up_to(params, state["v"])):
+            keys = ("vr", "vc") if _factored(p) else ("v",)
+            vs = tuple(v[k] for k in keys)
+            # the factored statistics and the RMS clip span the whole leaf
+            o = _apply(upd, (p,) + vs, (p, g) + vs, donate, elementwise=False)
+            outs.append((o[0], dict(zip(keys, o[1:]))))
         new_params = tree_unflatten(params, [o[0] for o in outs])
         new_v = tree_unflatten(params, [o[1] for o in outs])
         return new_params, {"v": new_v, "step": step}

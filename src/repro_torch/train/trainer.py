@@ -5,13 +5,17 @@ microbatches, metrics, and the checkpointed fault-tolerant loop.
 ``Trainer`` takes any ``loss_fn(params, batch)`` and ``init_params()`` over
 trees of tensors (``train.tree``), as the JAX package's does. It runs on
 ``device`` ("cuda" unless the caller asks for the CPU); batches are moved
-there with ``torch.as_tensor``. The JAX package's ``donate`` option and
-its mesh and shardings have no counterpart here: updates are out of place,
-and sharded training waits for the dist slice.
+there with ``torch.as_tensor``. ``TrainerConfig.donate`` (on by default,
+as in the JAX package) makes each step consume the parameters and
+optimizer state it is given and update them in place (``optimizer``'s
+donated update); ``init_state`` then copies what ``init_params()``
+returns, so the caller's tensors are never written. The JAX package's mesh
+and shardings wait for the dist slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -36,6 +40,38 @@ def value_and_grad(loss_fn: Callable, params: Any, *args):
     return loss.detach(), tree_unflatten(params, grads)
 
 
+def grad_sum(loss_fn: Callable, params: Any, parts: list):
+    """Each part's loss and the float32 sum of the parts' gradients of
+    ``params``: the JAX package's accumulation (float32 zeros, then each
+    part's gradient added in part order), done leaf by leaf as the backward
+    produces each leaf's gradient, so no second whole gradient tree is
+    alive. Returns (losses, sums); the caller's tensors are left as they
+    are."""
+    flat = tree_leaves(params)
+    sums = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat]
+    losses = []
+    for part in parts:
+        with torch.enable_grad():
+            live = [p.detach().requires_grad_() for p in flat]
+            for acc, p in zip(sums, live):
+                p.register_post_accumulate_grad_hook(functools.partial(_add_grad, acc))
+            loss = loss_fn(tree_unflatten(params, live), part)
+            loss.backward(inputs=live)
+        losses.append(loss.detach())
+    return losses, tree_unflatten(params, sums)
+
+
+def _add_grad(acc: torch.Tensor, p: torch.Tensor) -> None:
+    acc.add_(p.grad)
+    p.grad = None
+
+
+def split(batch: Any, mb: int) -> list:
+    """Every batch leaf split along its leading axis into ``mb`` parts."""
+    return [tree_map(lambda x: x.reshape((mb, -1) + tuple(x.shape[1:]))[i], batch)
+            for i in range(mb)]
+
+
 def batch_to(batch: Any, device: torch.device) -> Any:
     """The batch (a tree of arrays or tensors) as tensors on ``device``."""
     return tree_map(lambda x: torch.as_tensor(x, device=device), batch)
@@ -48,6 +84,7 @@ class TrainerConfig:
     log_every: int = 10
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50
+    donate: bool = True
 
 
 class Trainer:
@@ -71,27 +108,24 @@ class Trainer:
     def step(self, params, opt_state, batch):
         """One step: (new params, new optimizer state, {"loss", "gnorm"}).
         With ``microbatches`` > 1 every batch leaf is split along its
-        leading axis, the gradients summed in float32 and averaged, and the
-        loss is the microbatches' mean."""
+        leading axis, the gradients summed in float32 (``grad_sum``) and
+        averaged, and the loss is the microbatches' mean. With ``donate``
+        the step consumes ``params`` and ``opt_state``."""
         mb = self.tcfg.microbatches
         if mb > 1:
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params)
-            losses = []
-            for i in range(mb):
-                part = tree_map(lambda x: x.reshape((mb, -1) + tuple(x.shape[1:]))[i], batch)
-                loss, g = value_and_grad(self.loss_fn, params, part)
-                acc = tree_map(torch.add, acc, g)
-                losses.append(loss)
-            grads = tree_map(lambda g: g / mb, acc)
+            losses, grads = grad_sum(self.loss_fn, params, split(batch, mb))
+            grads = tree_map(lambda g: g.div_(mb), grads)
             loss = torch.stack(losses).mean()
         else:
             loss, grads = value_and_grad(self.loss_fn, params, batch)
-        new_params, new_opt = self.opt_update(grads, opt_state, params)
+        new_params, new_opt = self.opt_update(grads, opt_state, params, donate=self.tcfg.donate)
         return new_params, new_opt, {"loss": loss, "gnorm": opt_mod.global_norm(grads)}
 
     def init_state(self) -> Dict:
-        params = tree_map(lambda t: t.to(self.device), self.init_params())
+        """Parameters on the device and the optimizer's state; with
+        ``donate`` the parameters are copies, since the steps write them."""
+        copy = self.tcfg.donate
+        params = tree_map(lambda t: t.to(self.device, copy=copy), self.init_params())
         return {"params": params, "opt": self.opt_init(params)}
 
     def to_device(self, batch) -> Any:

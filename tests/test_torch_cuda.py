@@ -789,3 +789,98 @@ def test_moe_on_card_matches_cpu(cuda, top_k, capacity_factor):
     assert torch.equal(got.cpu() == 0, want == 0)
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(ga.cpu(), wa, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_lm_train_step_on_card_matches_cpu(cuda):
+    """``launch.steps.lm_train_step`` on the reduced minitron cut to 1
+    layer, 2 microbatches of 2 x 256 positions, one AdamW step on the card
+    against the CPU: the loss within 1e-3 and every gradient leaf within
+    5e-2 of its largest entry (tests/test_torch_lm_train.py's bounds
+    against the JAX package), every new parameter within 2 lr (Adam moves
+    an element by about lr whatever the gradient's size)."""
+    import dataclasses
+
+    from repro_torch.configs import base
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.train.trainer import batch_to, value_and_grad
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(base.reduced(base.get_arch("minitron-8b")), n_layers=1,
+                              microbatches=2)
+    shape = base.LMShape("t", "train", 256, 4)
+    batch = pipeline.lm_batch(np.random.default_rng(6), cfg, 4, 256)
+    params = tfm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    out = {}
+    for d in (torch.device("cpu"), cuda):
+        p = tree_map(lambda t: t.to(d, copy=True), params)   # the donated step writes p
+        grads = value_and_grad(tfm.loss_fn, p, cfg, batch_to(batch, d))[1]
+        opt_init, step = steps.lm_train_step(cfg, shape, device=d)
+        out[d.type] = step(p, opt_init(p), batch), grads
+    (p_cpu, _, m_cpu), g_cpu = out["cpu"]
+    (p_card, _, m_card), g_card = out["cuda"]
+    assert torch.isfinite(m_card["loss"])
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= 1e-3
+    for got, want in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        assert float((got.cpu() - want).abs().max()) <= 5e-2 * float(want.abs().max())
+    for got, want in zip(tree_leaves(p_card), tree_leaves(p_cpu)):
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert float((got.cpu() - want).abs().max()) <= 2 * 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["sgd", "adamw-f32", "adamw-bf16", "adafactor"])
+def test_lm_donated_steps_on_card_match_undonated_bits(cuda, opt):
+    """On the card, under deterministic algorithms, the reduced
+    starcoder2-7b with 2 microbatches: ``lm_train_step`` donated and not
+    (its AdamW), and ``Trainer.fit`` donated and not with each optimizer,
+    2 steps each: the same losses, parameters and optimizer state bit for
+    bit; the donated step's parameters are the tensors it was given."""
+    import dataclasses
+    import os
+
+    from repro_torch.configs import base
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.train import optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = dataclasses.replace(base.reduced(base.get_arch("starcoder2-7b")), microbatches=2)
+    shape = base.LMShape("t", "train", 128, 4)
+    opt_cfg = {"sgd": optimizer.OptConfig(name="sgd", lr=1e-2),
+               "adamw-f32": optimizer.OptConfig(lr=1e-3),
+               "adamw-bf16": optimizer.OptConfig(lr=1e-3, moment_dtype="bfloat16"),
+               "adafactor": optimizer.OptConfig(name="adafactor", lr=1e-2)}[opt]
+    batch_fn = pipeline.make_batch_fn("lm", cfg, shape, seed=7)
+    params = tfm.init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for donate in (True, False):
+            opt_init, step = steps.lm_train_step(cfg, shape, device=cuda, donate=donate)
+            p = tree_map(torch.clone, params)
+            state, ids, losses = opt_init(p), [id(t) for t in tree_leaves(p)], []
+            for s in range(2):
+                p, state, m = step(p, state, batch_fn(s))
+                losses.append(m["loss"])
+            tr = Trainer(lambda q, b: tfm.loss_fn(q, cfg, b), lambda: params, opt_cfg,
+                         TrainerConfig(num_steps=2, microbatches=2, log_every=1,
+                                       donate=donate), device=cuda)
+            runs[donate] = (p, state, losses, [id(t) for t in tree_leaves(p)] == ids,
+                            tr.fit(batch_fn), tr.history)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (p_d, s_d, l_d, kept, fit_d, h_d), (p_u, s_u, l_u, _, fit_u, h_u) = runs[True], runs[False]
+    assert kept and h_d == h_u
+    assert all(torch.equal(a, b) for a, b in zip(l_d, l_u))
+    for a, b in zip(tree_leaves((p_d, s_d, fit_d)), tree_leaves((p_u, s_u, fit_u))):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
+    # the donated fit copied its initial parameters: the caller's are unchanged
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(params), tree_leaves(tfm.init(torch.Generator().manual_seed(0), cfg,
+                                                  device=cuda))))

@@ -38,7 +38,8 @@ FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "graph_suite_torch.py",
+    ROOT / "examples" / "graph_suite_torch.py", ROOT / "examples" / "train_lm_torch.py",
+    ROOT / "examples" / "serve_lm_torch.py",
     ROOT / "scripts" / "torch_profile_pagerank.py", ROOT / "scripts" / "k1_d1_layouts.py",
     ROOT / "scripts" / "torch_profile_graph_suite.py", ROOT / "scripts" / "torch_profile_gnn_serve.py",
     ROOT / "scripts" / "k1_d1_layouts.cu", ROOT / "scripts" / "k2_k3_times.py",
@@ -173,6 +174,37 @@ def test_lm_entry_points_without_device_raise_without_cuda(monkeypatch):
         serve_cli.main(["--engine", "lm", "--requests", "1"])
     assert transformer.prefill(params, cfg, torch.zeros((1, 4), dtype=torch.int32))[0].device.type \
         == "cpu"
+
+
+def test_lm_training_entry_points_without_device_raise_without_cuda(monkeypatch, tmp_path):
+    """The train CLI, ``lm_train_step`` and the LM example twins default to
+    the card and raise without one, before any step or checkpoint; each
+    runs on the CPU only when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sys.path.insert(0, str(ROOT / "examples"))
+    import serve_lm_torch
+    import train_lm_torch
+
+    from repro_torch.configs import base
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_cli
+
+    cfg = base.reduced(base.get_arch("minitron-8b"))
+    shape = base.LMShape("t", "train", 64, 2)
+    ckpt = tmp_path / "ckpt"
+    for run in (lambda: train_cli.main(["--smoke", "--steps", "1", "--ckpt", str(ckpt)]),
+                lambda: train_cli.main(["--smoke", "--steps", "1", "--device", "cuda:0"]),
+                lambda: steps.lm_train_step(cfg, shape),
+                lambda: train_lm_torch.main(["--steps", "1"]),
+                lambda: serve_lm_torch.main(["--requests", "1"]),
+                lambda: serve_lm_torch.main(["--gateway"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
+    assert not ckpt.exists()
+    steps.lm_train_step(cfg, shape, device="cpu")
+    state = train_cli.main(["--smoke", "--steps", "1", "--batch", "2", "--seq", "64",
+                            "--device", "cpu"])
+    assert state["params"]["embed"].device.type == "cpu" and int(state["opt"]["step"]) == 1
 
 
 def test_kernel_wrappers_refuse_meta_tensors():
