@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only 16     # the set-up, then phase 16 alone
+
 
 Phases, each of which must pass:
   1. build the kernels from src/repro_torch/csrc/ with nvcc (one process
@@ -165,7 +167,26 @@ Phases, each of which must pass:
      examples/train_lm_torch.py (300 steps, a failure at 120): the loss
      falls; (e) ``python -m repro_torch.launch.train --smoke --steps 10
      --fail-at 4 --ckpt DIR`` in a subprocess: exit 0, a checkpoint of
-     step 10.
+     step 10;
+ 16. the mesh and sharding layer (launch.mesh, dist.sharding, the cells of
+     launch.steps, checkpoint.restore(shardings=), Trainer(mesh=),
+     launch.dryrun), which launches no kernel (the counts stay 0), on an
+     NCCL world-size-1 group and make_debug_mesh(1, 1) on the card, after
+     phase 15's tensors are gone: (a) the minitron-8b train_4k cell at
+     phase 15 (a)'s cuts (4 of 32 layers, global batch 8), ms a step and
+     peak memory, its first step against lm_train_step's from the same
+     seed and batch (bit for bit on a 1 x 1 mesh, else within phase 15
+     (b)'s loss bound and AdamW's lr); (b) the decode_32k cell at full
+     width and depth, bfloat16 weights, batch 4, caches of 32,768
+     positions filled to 32,000: one step against tfm.decode_step, logits
+     and caches, then ms a step of both; (c) the prefill_32k cell at batch
+     1 against tfm.prefill (last logits and cache; seconds); (d)
+     checkpoint.restore(shardings=) onto the mesh (DTensors on the card,
+     the saved bits) and Trainer(mesh=, in_shardings=, out_shardings=) 3
+     steps bit for bit against the unsharded Trainer under deterministic
+     algorithms; (e) ``python -m repro_torch.launch.dryrun --mesh both``
+     over minitron-8b's three LM cells, gin-tu:molecule and
+     mind:retrieval_cand: every cell "ok", each record printed.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
@@ -299,6 +320,12 @@ LM_TRAIN_CPU_BATCH, LM_TRAIN_CPU_SEQ = 2, 128
 LM_TRAIN_LOSS_ATOL = 1e-3
 LM_TRAIN_GRAD_REL = 5e-2
 LM_TRAIN_SMALL = dict(n_layers=2, d_model=256, n_heads=8, n_kv=4, d_ff=1024, vocab=4096)
+# phase 16: the mesh and sharding layer
+MESH_DECODE_BATCH = 4          # decode_32k's 128 cut: two 17.2 GB caches for the comparison
+MESH_DECODE_LENGTH = 32000     # the cache's filled prefix (of 32,768 positions)
+MESH_DRYRUN_CELLS = ("minitron-8b:train_4k,minitron-8b:prefill_32k,minitron-8b:decode_32k,"
+                     "gin-tu:molecule,mind:retrieval_cand")
+MESH_DRYRUN_TIMEOUT = 400
 
 
 def card_line() -> str:
@@ -3563,6 +3590,413 @@ def run_lm_training(dev) -> None:
         fail(f"LM training launched a kernel: {launched}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the mesh and sharding layer (launch.mesh, dist.sharding, the
+# cells of launch.steps, checkpoint.restore(shardings=), Trainer(mesh=),
+# launch.dryrun)
+# ---------------------------------------------------------------------------
+def host_whole(tree) -> list:
+    """Every leaf of a tree of DTensors (or tensors), whole, copied to the
+    host (a donated step writes the leaves themselves)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.train.tree import tree_leaves
+
+    return [(x.full_tensor() if isinstance(x, DTensor) else x).to("cpu", copy=True)
+            for x in tree_leaves(tree)]
+
+
+def bits_or_error(got: list, want: list) -> tuple[bool, float]:
+    """(every pair bit for bit, the largest difference of any pair)."""
+    same = all(x.dtype == y.dtype and same_bits(x, y) for x, y in zip(got, want))
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want))
+    return same, err
+
+
+def event_ms(fn):
+    """(``fn()``, its CUDA-event milliseconds)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def handing_grads(on_grads):
+    """A context in which the steps launch.steps builds call
+    ``on_grads(leaves)`` with the whole gradients (a DTensor gathered) of
+    their first optimizer update, before it runs: it wraps
+    ``train.optimizer.make``, which those steps call when they are built."""
+    import contextlib
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.tree import tree_leaves
+
+    @contextlib.contextmanager
+    def ctx():
+        make, seen = opt_mod.make, []
+
+        def handing_make(cfg):
+            init, update = make(cfg)
+
+            def update_handing(grads, state, params, donate=False):
+                if not seen:
+                    seen.append(True)
+                    on_grads([g.full_tensor() if isinstance(g, DTensor) else g
+                              for g in tree_leaves(grads)])
+                return update(grads, state, params, donate=donate)
+            return init, update_handing
+
+        opt_mod.make = handing_make
+        try:
+            yield
+        finally:
+            opt_mod.make = make
+    return ctx()
+
+
+def mesh_train_cell(dev, mesh) -> None:
+    """Phase 16 (a): the minitron-8b:train_4k cell (launch.steps'
+    _lm_train_cell, which build_cell calls) at phase 15 (a)'s cuts (its
+    published width, LM_TRAIN_LAYERS of 32 layers, a global batch of
+    LM_TRAIN_BATCH) on the one-card mesh: the parameters and AdamW state
+    placed by the cell's shardings, batches by its batch placements, one
+    step then LM_TRAIN_TIMED timed by CUDA events (ms a step, peak memory);
+    then launch.steps.lm_train_step from the same generator seed on the same
+    first batch. On a 1 x 1 mesh every shard is the whole leaf, so the
+    first step's loss, the gradients it hands AdamW and the parameters
+    after it must have its bits; else the largest differences, with the
+    loss and every gradient held to phase 15 (b)'s bounds (LM_TRAIN_LOSS_ATOL,
+    each leaf within LM_TRAIN_GRAD_REL of its largest entry). Two 4-layer
+    states do not fit the card together: the cell's first-step gradients
+    and parameters wait on the host, and lm_train_step's gradients are
+    compared with them leaf by leaf as its update receives them."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.nn import transformer as tfm
+
+    cfg = lm_train_cfg(LM_TRAIN_LAYERS)
+    shape = dataclasses.replace(LM_SHAPES["train_4k"], global_batch=LM_TRAIN_BATCH)
+    cell_grads, grad_check = [], {}
+
+    def keep(leaves):
+        cell_grads.extend(g.to("cpu", copy=True) for g in leaves)
+
+    def compare(leaves):
+        same, rel = True, []
+        for g, w in zip(leaves, cell_grads, strict=True):
+            w = w.to(g.device)
+            same = same and g.dtype == w.dtype and same_bits(g, w)
+            scale = float(w.abs().max())
+            err = float((g.float() - w.float()).abs().max())
+            rel.append(err / scale if scale else (0.0 if err == 0 else float("inf")))
+        grad_check.update(same=same, rel=rel)
+
+    with handing_grads(keep):
+        cell = steps._lm_train_cell(cfg, shape, mesh)
+    rng = np.random.default_rng(16)
+    batches = [lm_batch(rng, cfg, shape.global_batch, shape.seq_len)
+               for _ in range(1 + LM_TRAIN_TIMED)]
+    with handing_grads(compare):
+        opt_init, plain_step = steps.lm_train_step(cfg, shape, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tfm.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    p = shd.place(params, cell.in_shardings[0])
+    s = shd.place(opt_init(params), cell.in_shardings[1])
+    del params
+    losses, ms, first = [], [], None
+    for i, b in enumerate(batches):
+        (p, s, m), t = event_ms(lambda: cell.step_fn(p, s, shd.place(b, cell.in_shardings[2])))
+        losses.append(float(m["loss"].full_tensor()))
+        if i == 0:
+            first = host_whole(p)
+        else:
+            ms.append(t)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"mesh (a): {cfg.name} train_4k cell at {cfg.n_layers} of 32 layers, global batch "
+          f"{shape.global_batch}, on a {tuple(mesh.shape)} mesh (placements: embed "
+          f"{p['embed'].placements}, tokens {cell.in_shardings[2]['tokens'].placements}): step "
+          f"ms (CUDA events) {[round(x, 3) for x in ms]}, median {statistics.median(ms):.3f} "
+          f"(phase 15 (a) prints lm_train_step's); peak {peak / 2**30:.3f} GiB; "
+          f"losses {[round(x, 6) for x in losses]}")
+    del p, s, m
+    torch.cuda.empty_cache()
+    params = tfm.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    params, state, m = plain_step(params, opt_init(params), batches[0])
+    plain_loss, plain = float(m["loss"]), host_whole(params)
+    del params, state
+    torch.cuda.empty_cache()
+    same, err = bits_or_error(first, plain)
+    rel = max(grad_check["rel"])
+    print(f"mesh (a): the cell's first step against lm_train_step's: loss {losses[0]:.9g} vs "
+          f"{plain_loss:.9g}; gradients ({len(cell_grads)} leaves) "
+          f"{'bit for bit' if grad_check['same'] else f'differ by {rel:.4e} of a leaf largest'}; "
+          f"parameters {'bit for bit' if same else f'differ by {err:.4e}'}")
+    if not np.isfinite(losses).all():
+        fail(f"mesh (a): losses {losses}")
+    if not (same and grad_check["same"] and losses[0] == plain_loss) and not (
+            abs(losses[0] - plain_loss) <= LM_TRAIN_LOSS_ATOL and rel <= LM_TRAIN_GRAD_REL):
+        fail(f"mesh (a): the cell is off lm_train_step: loss {losses[0]} vs {plain_loss}, "
+             f"gradients by {rel} of a leaf's largest entry")
+
+
+def mesh_serving_cells(dev, mesh) -> None:
+    """Phase 16 (b), (c): the minitron-8b serving cells at its published
+    width and depth with bfloat16 parameters (the cells' dtype), on the
+    one-card mesh. (b) decode_32k cut to batch MESH_DECODE_BATCH: caches of
+    32,768 positions drawn from a seeded generator, length
+    MESH_DECODE_LENGTH; one step of the cell against tfm.decode_step on the
+    same weights, token and cache (a copy): logits and the written caches
+    bit for bit, else within phase 14 (b)'s bound; then 3 more steps of
+    each, ms a step by CUDA events. (c) prefill_32k cut to batch 1: the
+    cell against tfm.prefill, its last logits and cache the same way, and
+    seconds of each."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import LM_SHAPES, get_arch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.train.tree import tree_map
+
+    cfg = get_arch(LM_ARCH)
+    params = tree_map(lambda t: t.to(torch.bfloat16),
+                      tfm.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev))
+    torch.cuda.empty_cache()
+    shape = dataclasses.replace(LM_SHAPES["decode_32k"], global_batch=MESH_DECODE_BATCH)
+    cell = steps._lm_decode_cell(cfg, shape, mesh)
+    p = shd.place(params, cell.in_shardings[0])
+    gen = torch.Generator(device=dev).manual_seed(16)
+    kv = (cfg.n_layers, shape.global_batch, shape.seq_len, cfg.n_kv, cfg.head_dim)
+    k = torch.randn(kv, generator=gen, dtype=torch.bfloat16, device=dev)
+    v = torch.randn(kv, generator=gen, dtype=torch.bfloat16, device=dev)
+    plain = tfm.KVCache(k=k.clone(), v=v.clone(), length=MESH_DECODE_LENGTH)
+    cache = shd.place(tfm.KVCache(k=k, v=v, length=torch.tensor(MESH_DECODE_LENGTH,
+                                                                dtype=torch.int32)),
+                      cell.in_shardings[1])
+    del k, v
+    rng = np.random.default_rng(16)
+    tokens = [torch.from_numpy(rng.integers(0, cfg.vocab, shape.global_batch).astype(np.int32))
+              .to(dev) for _ in range(4)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    cell_ms, plain_ms = [], []
+    for i, tok in enumerate(tokens):
+        (lc, cache), tc = event_ms(lambda: cell.step_fn(p, cache, shd.place(tok, cell.in_shardings[2])))
+        (lp, plain), tp = event_ms(lambda: tfm.decode_step(params, cfg, plain, tok))
+        if i == 0:
+            same = same_bits(lc.full_tensor(), lp) and all(
+                torch.equal(a.full_tensor(), b) for a, b in ((cache.k, plain.k), (cache.v, plain.v)))
+            if not same:
+                lm_close("mesh (b): the decode cell's logits vs tfm.decode_step's",
+                         lc.full_tensor(), lp, LM_TF_TOL)
+                lm_close("mesh (b): the cache position it wrote",
+                         cache.k.full_tensor()[:, :, MESH_DECODE_LENGTH], plain.k[:, :, MESH_DECODE_LENGTH],
+                         LM_TF_TOL)
+            first = (same, float(lc.full_tensor().abs().max()))
+        else:
+            cell_ms.append(tc)
+            plain_ms.append(tp)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"mesh (b): {cfg.name} decode_32k cell at batch {shape.global_batch} (of "
+          f"{LM_SHAPES['decode_32k'].global_batch}), bfloat16 weights, caches of {shape.seq_len} "
+          f"positions from length {MESH_DECODE_LENGTH} ({2 * plain.k.numel() * 2 / 1e9:.1f} GB a "
+          f"cache): the first step's logits (up to {first[1]:.3f}) and caches against "
+          f"tfm.decode_step {'bit for bit' if first[0] else 'within phase 14 (b) bounds'}; "
+          f"ms a step (CUDA events) cell {[round(x, 3) for x in cell_ms]} median "
+          f"{statistics.median(cell_ms):.3f}, tfm.decode_step {[round(x, 3) for x in plain_ms]} "
+          f"median {statistics.median(plain_ms):.3f} (phase 14 (a) prints the step on float32 "
+          f"weights cast each call, at batch 8); peak "
+          f"{peak / 2**30:.3f} GiB; lengths {int(cache.length)} and {plain.length}")
+    if int(cache.length) != plain.length:
+        fail(f"mesh (b): cache lengths {cache.length} and {plain.length}")
+    del cache, plain, lc, lp
+    torch.cuda.empty_cache()
+
+    shape = dataclasses.replace(LM_SHAPES["prefill_32k"], global_batch=1)
+    cell = steps._lm_prefill_cell(cfg, shape, mesh)
+    p = shd.place(params, cell.in_shardings[0])
+    tok = torch.from_numpy(lm_prompts(cfg.vocab, 1, shape.seq_len, seed=3)).to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (lc, cc), tc = event_ms(lambda: cell.step_fn(p, shd.place(tok, cell.in_shardings[1])))
+    (lp, cp), tp = event_ms(lambda: tfm.prefill(params, cfg, tok))
+    peak = torch.cuda.max_memory_allocated(dev)
+    same = same_bits(lc.full_tensor(), lp) and all(
+        torch.equal(a.full_tensor(), b) for a, b in ((cc.k, cp.k), (cc.v, cp.v)))
+    print(f"mesh (c): {cfg.name} prefill_32k cell at batch 1 (of "
+          f"{LM_SHAPES['prefill_32k'].global_batch}): {tc / 1e3:.3f} s (CUDA events, first call), "
+          f"tfm.prefill {tp / 1e3:.3f} s (phase 14 (d) prints it on float32 weights); last "
+          f"logits and cache {'bit for bit' if same else 'differ'}; peak "
+          f"{peak / 2**30:.3f} GiB")
+    if not same:
+        lm_close("mesh (c): the prefill cell's last logits vs tfm.prefill's", lc.full_tensor(), lp,
+                 LM_TF_TOL)
+        lm_close("mesh (c): its cache", cc.k.full_tensor()[:, :, -1], cp.k[:, :, -1], LM_TF_TOL)
+    if not torch.isfinite(lp).all():
+        fail("mesh (c): prefill logits not finite")
+
+
+def mesh_restore_and_trainer(dev, mesh) -> None:
+    """Phase 16 (d): at examples/train_lm.py's minitron width (2 layers),
+    checkpoint.restore(..., shardings=) onto the card's mesh by the train
+    cell's parameter shardings gives DTensors on the card with the saved
+    bits; then, under deterministic algorithms, Trainer(mesh=,
+    in_shardings=, out_shardings=) with 2 microbatches takes 3 steps with
+    the unsharded Trainer's history and state bit for bit."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import LMShape, get_arch, reduced
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = dataclasses.replace(reduced(get_arch(LM_ARCH)), **LM_TRAIN_SMALL)
+    shape = LMShape("t", "train", 256, 4)
+    cell = steps._lm_train_cell(cfg, shape, mesh)
+    params = tfm.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        checkpoint.save(d, 1, params)
+        got = checkpoint.restore(d, 1, params, shardings=cell.in_shardings[0])
+    leaves = tree_leaves(got)
+    placed = all(isinstance(x, DTensor) and x.device_mesh == mesh
+                 and x.to_local().device.type == dev.type for x in leaves)
+    same, _ = bits_or_error(host_whole(got), host_whole(params))
+    print(f"mesh (d): checkpoint.restore(shardings=) of {cfg.param_count():,} parameters: "
+          f"DTensors on {dev.type} {placed}, the saved bits {same}")
+    if not (placed and same):
+        fail("mesh (d): the sharded restore")
+    batch_fn = make_batch_fn("lm", cfg, shape, seed=5)
+
+    def fit(on_mesh: bool):
+        kw = {}
+        if on_mesh:
+            kw = dict(mesh=mesh, in_shardings=cell.in_shardings,
+                      out_shardings=(cell.out_shardings[0], cell.out_shardings[1], shd.ns(mesh)))
+        tr = Trainer(lambda q, b: tfm.loss_fn(q, cfg, b),
+                     lambda: tfm.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                                      device=dev),
+                     OptConfig(lr=1e-3), TrainerConfig(num_steps=3, microbatches=2, log_every=1),
+                     device=dev, **kw)
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = tr.fit(batch_fn)
+        return tr.history, host_whole(state)
+
+    ((h_mesh, s_mesh), (h_plain, s_plain)), refused = deterministic(
+        lambda: (fit(True), fit(False)))
+    same, err = bits_or_error(s_mesh, s_plain)
+    print(f"mesh (d): Trainer on the mesh vs unsharded, 3 steps (deterministic "
+          f"{'no: ' + refused if refused else 'yes'}): history "
+          f"{'equal' if h_mesh == h_plain else 'DIFFERENT'}, state "
+          f"{'bit for bit' if same else f'differs by {err:.4e}'}; losses "
+          f"{[round(h['loss'], 6) for h in h_mesh]}")
+    if h_mesh != h_plain or not same:
+        fail("mesh (d): Trainer(mesh=) changed a bit")
+
+
+def mesh_dryrun() -> None:
+    """Phase 16 (e): ``python -m repro_torch.launch.dryrun --mesh both
+    --cells MESH_DRYRUN_CELLS`` in a subprocess (the fake backend at 256
+    and 512 ranks, meta tensors: nothing on the card): exit 0 and every
+    cell "ok"; each record's summary printed."""
+    import tempfile
+
+    import torch
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        out = os.path.join(d, "dryrun.json")
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "both",
+                               "--cells", MESH_DRYRUN_CELLS, "--out", out], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=MESH_DRYRUN_TIMEOUT)
+        records = json.load(open(out)) if os.path.exists(out) else []
+    for r in records:
+        if r["status"] == "ok":
+            print(f"mesh (e): {r['arch']}:{r['shape']} on {r['mesh']} ({r['devices']} devices): "
+                  f"ok in {r['compile_s']} s; bytes a device {r['bytes_per_device']:,} "
+                  f"({r['bytes_kind']}); GFLOP a device {r['hlo_gflops_per_dev']} (traced "
+                  f"{r['traced_gflops_per_dev']:.3f}); collective GB {r['coll_breakdown']}; "
+                  f"dominant {r['dominant']} (compute {r['compute_s']:.4g} s, memory "
+                  f"{r['memory_s']:.4g} s, collective {r['collective_s']:.4g} s); {r['traced']}")
+        else:
+            where = [ln.strip() for ln in r.get("traceback", "").splitlines() if "repro_torch" in ln]
+            print(f"mesh (e): {r['arch']}:{r['shape']} on {r['mesh']}: {r['status']}: "
+                  f"{r.get('error')} (at {where[-3:]})")
+    print(f"mesh (e): the dry-run (torch {torch.__version__}): exit {proc.returncode}, "
+          f"{sum(r['status'] == 'ok' for r in records)}/{len(records)} ok")
+    want = 2 * len(MESH_DRYRUN_CELLS.split(","))
+    if proc.returncode != 0 or len(records) != want or any(r["status"] != "ok" for r in records):
+        fail(f"mesh (e): the dry-run: {proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+
+
+def run_mesh(dev) -> None:
+    """Phase 16: the mesh and sharding layer on one card: an NCCL
+    world-size-1 process group (a file:// store under build/, as phase 12),
+    make_debug_mesh(1, 1) on the card, the cells of (a)-(d), then the
+    dry-run (e). It launches no kernel of the port (the cells call the
+    plain routes, as the JAX package's cells call impl="jnp"): K1's, K2's
+    and K3's launch counts are 0 at its start and still 0 at its end."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    store = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type=dev.type)
+        phase("16a (the minitron-8b train_4k cell at 4 of 32 layers)", mesh_train_cell, dev, mesh)
+        torch.cuda.empty_cache()
+        phase("16b-c (the minitron-8b decode_32k and prefill_32k cells)", mesh_serving_cells,
+              dev, mesh)
+        torch.cuda.empty_cache()
+        phase("16d (sharded restore and Trainer on the mesh)", mesh_restore_and_trainer, dev,
+              mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    phase("16e (the dry-run)", mesh_dryrun)
+    launched = {c.__name__: c.launches for c in counters}
+    print(f"mesh and sharding: kernel launches {launched}")
+    if any(launched.values()):
+        fail(f"the mesh phase launched a kernel: {launched}")
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -3571,7 +4005,22 @@ def phase(label: str, fn, *args):
     return out
 
 
-def main() -> int:
+# phases that ``--only`` runs alone after the set-up (phase 1 is not needed:
+# they launch no kernel of the port)
+ONLY = {"14": lambda dev: phase("14 (LM serving)", run_lm_serving, dev),
+        "15": lambda dev: phase("15 (LM training)", run_lm_training, dev),
+        "16": lambda dev: phase("16 (the mesh and sharding layer)", run_mesh, dev)}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one card and check it.")
+    ap.add_argument("--only", default="", help=f"comma-separated phases of {sorted(ONLY)} "
+                    "to run alone (no kernels line and no final result line)")
+    only = [x for x in ap.parse_args(argv).only.split(",") if x]
+    if set(only) - set(ONLY):
+        ap.error(f"--only takes phases of {sorted(ONLY)}")
     # phase 12's GRASP step frees and takes 20-32 GiB message tensors among
     # 1 GiB activations: with fixed segments the caching allocator split the
     # freed blocks and a later 20.47 GiB tensor found no room (OOM with 21 GiB
@@ -3594,6 +4043,13 @@ def main() -> int:
     print(card)
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matrix products are on: MIND's float32 scores need them off")
+    if only:
+        print(sys.version.split()[0], torch.__version__, torch.version.cuda)
+        for name in only:
+            ONLY[name](dev)
+        print(f"total: {time.perf_counter() - t_start:.1f} s (phases {only} alone)")
+        print(card)
+        return 0
     phase("1 (build with nvcc, sm_90a)", build_all)
 
     t0 = time.perf_counter()
@@ -3681,6 +4137,8 @@ def main() -> int:
     phase("14 (LM serving)", run_lm_serving, dev)
     torch.cuda.empty_cache()
     phase("15 (LM training)", run_lm_training, dev)
+    torch.cuda.empty_cache()
+    phase("16 (the mesh and sharding layer)", run_mesh, dev)
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

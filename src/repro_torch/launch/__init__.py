@@ -1,1 +1,3 @@
-"""Command-line entry points (``serve``)."""
+"""The launch layer: meshes (``mesh``), the cells and train steps
+(``steps``), roofline terms (``roofline``), and the command-line entry
+points ``serve``, ``train``, ``dryrun`` and ``profile_serve``."""

@@ -11,8 +11,11 @@ The JAX package's formulas over configs (``model_flops_for``,
 all-gather / all-reduce / reduce-scatter / all-to-all /
 collective-permute, scaled by a per-op traffic factor: ring-algorithm
 bytes actually crossing links), with one NVIDIA H100 SXM5's peak rates in
-place of the TPU's. Counting a torch program's collectives waits for the
-mesh slice.
+place of the TPU's. A torch program's collectives, as a dispatch mode
+records them (``launch/dryrun.py``: each functional or c10d collective's
+operand bytes and group size, under ``CommDebugMode``), go through the
+same factors by ``traced_collective_bytes``, keyed by the same op names,
+and ``analyze`` takes them in place of HLO text.
 """
 from __future__ import annotations
 
@@ -89,8 +92,7 @@ def collective_bytes(hlo_text: str, num_devices: int,
     ``loop_trips``: a collective at while-depth k is multiplied by
     prod(loop_trips[:k]) (e.g. (n_layers, seq_chunks) for an LM step).
     """
-    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0,
-           "all-to-all": 0.0, "collective-permute": 0.0}
+    out = dict.fromkeys(COLLECTIVE_OPS, 0.0)
     for line in hlo_text.splitlines():
         m = _COLLECTIVE_RE.match(line)
         if not m:
@@ -105,17 +107,37 @@ def collective_bytes(hlo_text: str, num_devices: int,
             depth = opname.group(1).count("while/body") if opname else 0
             for trip in loop_trips[: min(depth, len(loop_trips))]:
                 b *= trip
-        frac = (g - 1) / g
-        if op == "all-gather":
-            out[op] += b * frac
-        elif op == "reduce-scatter":
-            out[op] += b * frac * g  # result is 1/G of the reduced buffer
-        elif op == "all-reduce":
-            out[op] += 2 * b * frac
-        elif op == "all-to-all":
-            out[op] += b * frac
-        elif op == "collective-permute":
-            out[op] += b
+        out[op] += _ring_bytes(op, b, g)
+    return out
+
+
+COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                  "collective-permute")
+
+
+def _ring_bytes(op: str, b: float, g: int) -> float:
+    """Bytes crossing one device's links for collective ``op`` over a group
+    of ``g`` with result size ``b`` (the factors of ``collective_bytes``)."""
+    frac = (g - 1) / g
+    if op == "reduce-scatter":
+        return b * frac * g  # result is 1/G of the reduced buffer
+    if op == "all-reduce":
+        return 2 * b * frac
+    if op == "collective-permute":
+        return b
+    return b * frac  # all-gather, all-to-all
+
+
+def traced_collective_bytes(records) -> Dict[str, float]:
+    """Per-device bytes crossing the links, by collective op type, from
+    traced collectives: ``(op, result_bytes, group_size)`` records with
+    ``op`` one of ``COLLECTIVE_OPS`` and the result size as the HLO result
+    shape gives it (the gathered buffer of an all-gather, the scattered
+    block of a reduce-scatter)."""
+    out = dict.fromkeys(COLLECTIVE_OPS, 0.0)
+    for op, b, g in records:
+        if g > 1:
+            out[op] += _ring_bytes(op, b, g)
     return out
 
 
@@ -179,18 +201,21 @@ class Roofline:
 def analyze(arch, shape, mesh_name, num_devices, cost, hlo_text,
             model_flops: float, memory_bytes: Optional[float] = None,
             loop_trips: tuple = (),
-            analytic: Optional[dict] = None) -> Roofline:
+            analytic: Optional[dict] = None,
+            collectives: Optional[Dict[str, float]] = None) -> Roofline:
     """``analytic`` (flops_per_dev, hbm_bytes_per_dev) overrides the HLO
     cost_analysis numbers for scan-over-layers programs, where XLA counts
     the loop body once. The HLO-parsed
     collective bytes always come from the compiled text, with while-depth
-    trip scaling."""
+    trip scaling; ``collectives`` (``traced_collective_bytes``' dict for a
+    torch program) stands in for the text when given."""
     per_dev_flops = float(cost.get("flops", 0.0))
     raw_bytes = float(cost.get("bytes accessed", 0.0))
     if analytic is not None:
         per_dev_flops = analytic["flops_per_dev"]
         raw_bytes = analytic["hbm_bytes_per_dev"]
-    coll = collective_bytes(hlo_text, num_devices, loop_trips)
+    coll = (collectives if collectives is not None
+            else collective_bytes(hlo_text, num_devices, loop_trips))
     coll_total = sum(coll.values())
     compute_s = per_dev_flops / PEAK_FLOPS
     memory_s = raw_bytes / HBM_BW

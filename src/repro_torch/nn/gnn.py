@@ -32,9 +32,11 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch import devices
 from repro_torch.configs.base import GNNConfig
+from repro_torch.dist.sharding import LocalRows, LocalSegmentExtreme, local_segment_sum
 from repro_torch.nn import layers as L
 from repro_torch.train.tree import tree_map
 
@@ -65,20 +67,30 @@ def _edges(batch: Dict, dev: torch.device):
 
 
 class _SegmentSum(torch.autograd.Function):
-    """``jax.ops.segment_sum(x, dst, n)`` by ``index_add_``, with its
-    gradient ``g[dst]``. Autograd through ``index_add_`` itself would keep
+    """``jax.ops.segment_sum(x, dst, n)`` by ``index_add_`` (on DTensors,
+    ``dist.sharding.local_segment_sum``), with its gradient ``g[dst]``. Autograd through ``index_add_`` itself would keep
     the (E, d) source alive for the backward (it reads the source's shape);
     this keeps only ``dst``: at 57M edges that is 13.65 GiB a layer."""
 
     @staticmethod
     def forward(ctx, x, dst, n):
         ctx.save_for_backward(dst)
+        if isinstance(x, DTensor):
+            return local_segment_sum(x, dst, n)
         return x.new_zeros((n,) + tuple(x.shape[1:])).index_add_(0, dst, x)
 
     @staticmethod
     def backward(ctx, g):
         (dst,) = ctx.saved_tensors
-        return g.index_select(0, dst), None, None
+        return _rows(g, dst), None, None
+
+
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table.index_select(0, idx)``; on DTensors by
+    ``dist.sharding.LocalRows``."""
+    if isinstance(table, DTensor):
+        return LocalRows.apply(table, idx)
+    return table.index_select(0, idx)
 
 
 def _seg_sum(x: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
@@ -88,10 +100,19 @@ def _seg_sum(x: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
 def _seg_extreme(x: torch.Tensor, dst: torch.Tensor, n: int, reduce: str) -> torch.Tensor:
     """Segment ``amax``/``amin`` of (E, d) ``x`` over ``dst``, with 0 where
     the JAX package's ``segment_max``/``segment_min`` give a non-finite
-    value: empty segments keep the zero base, and segments whose every
-    edge is masked to -inf/+inf reduce to it and are zeroed."""
-    out = x.new_zeros((n,) + tuple(x.shape[1:]))
-    out.scatter_reduce_(0, dst[:, None].expand_as(x), x, reduce, include_self=False)
+    value: empty segments and segments whose every edge is masked to
+    -inf/+inf reduce to the -inf/+inf base and are zeroed. The base is
+    reduced with the rows (``include_self``): ``scatter_reduce``'s gradient
+    counts a segment's ties with its base, which an empty segment alone
+    equals, where a zero base would also count itself among the ties of a
+    segment whose extreme is 0 (JAX's gradient splits evenly over the rows
+    alone). On DTensors (a cell on a mesh) by
+    ``dist.sharding.LocalSegmentExtreme``."""
+    if isinstance(x, DTensor):
+        out = LocalSegmentExtreme.apply(x, dst, n, reduce)
+    else:
+        out = x.new_full((n,) + tuple(x.shape[1:]), -torch.inf if reduce == "amax" else torch.inf)
+        out = out.scatter_reduce(0, dst[:, None].expand_as(x), x, reduce, include_self=True)
     return torch.where(torch.isfinite(out), out, 0.0)
 
 
@@ -134,7 +155,7 @@ def gin_apply(params, cfg: GNNConfig, batch: Dict):
     src, dst, emask = _edges(batch, dev)
     n = h.shape[0]
     for lp in params["layers"]:
-        msg = h.index_select(0, src)
+        msg = _rows(h, src)
         msg = torch.where(emask[:, None], msg, 0.0)
         agg = _seg_sum(msg, dst, n)
         eps = lp["eps"] if lp["eps"] is not None else 0.0
@@ -171,8 +192,8 @@ def pna_apply(params, cfg: GNNConfig, batch: Dict, mean_log_deg: float = 1.0):
     em = emask[:, None]
 
     for lp in params["layers"]:
-        hi = h.index_select(0, dst)
-        hj = h.index_select(0, src)
+        hi = _rows(h, dst)
+        hj = _rows(h, src)
         m = _mlp(lp["pre"], torch.cat([hi, hj], dim=-1))
         m = torch.where(em, m, 0.0)
 
@@ -225,10 +246,10 @@ def egnn_apply(params, cfg: GNNConfig, batch: Dict):
     src, dst, emask = _edges(batch, dev)
     n = h.shape[0]
     for lp in params["layers"]:
-        xi, xj = coords.index_select(0, dst), coords.index_select(0, src)
+        xi, xj = _rows(coords, dst), _rows(coords, src)
         diff = xi - xj
         d2 = torch.sum(diff * diff, dim=-1, keepdim=True)
-        hi, hj = h.index_select(0, dst), h.index_select(0, src)
+        hi, hj = _rows(h, dst), _rows(h, src)
         m = _mlp(lp["phi_e"], torch.cat([hi, hj, d2], dim=-1))
         m = L.silu(m)
         m = torch.where(emask[:, None], m, 0.0)
@@ -298,7 +319,7 @@ def nequip_apply(params, cfg: GNNConfig, batch: Dict):
     n = coords.shape[0]
     d = cfg.d_hidden
 
-    rij = coords.index_select(0, dst) - coords.index_select(0, src)
+    rij = _rows(coords, dst) - _rows(coords, src)
     r = torch.sqrt(torch.clamp(torch.sum(rij * rij, dim=-1), min=1e-12))
     u = rij / r[:, None]
     rbf = _bessel_rbf(r, cfg.n_rbf, cfg.cutoff)          # (E, n_rbf)
@@ -306,7 +327,7 @@ def nequip_apply(params, cfg: GNNConfig, batch: Dict):
     y2 = _y2(u) if cfg.l_max >= 2 else None               # (E, 5)
     valid = emask & (r < cfg.cutoff)
 
-    s = params["embed"].index_select(0, species)          # (N, d)
+    s = _rows(params["embed"], species)                   # (N, d)
     v = torch.zeros((n, d, 3), device=dev)
     t = torch.zeros((n, d, 5), device=dev) if cfg.l_max >= 2 else None
 
@@ -315,8 +336,8 @@ def nequip_apply(params, cfg: GNNConfig, batch: Dict):
         return _seg_sum(x, dst, n)
 
     for lp in params["layers"]:
-        sj = s.index_select(0, src)                       # (E, d)
-        vj = v.index_select(0, src)                       # (E, d, 3)
+        sj = _rows(s, src)                                # (E, d)
+        vj = _rows(v, src)                                # (E, d, 3)
         w00 = _mlp(lp["r00"], rbf)                        # (E, d)
         w01 = _mlp(lp["r01"], rbf)
         w11 = _mlp(lp["r11"], rbf)
@@ -329,7 +350,7 @@ def nequip_apply(params, cfg: GNNConfig, batch: Dict):
             vj, w11[:, :, None]
         )
         if cfg.l_max >= 2:
-            tj = t.index_select(0, src)
+            tj = _rows(t, src)
             w02 = _mlp(lp["r02"], rbf)
             w22 = _mlp(lp["r22"], rbf)
             t_new = seg(sj[:, :, None] * y2[:, None, :], w02[:, :, None]) + seg(

@@ -25,6 +25,9 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.dist.sharding import constrain, local_attention, unflatten
 
 
 def normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
@@ -147,7 +150,7 @@ def attention(
     dev = q.device
 
     if sq == 1:
-        qg = q.reshape(b, sq, kvh, groups, hd)
+        qg = unflatten(q, 2, (kvh, groups))
         s = torch.einsum("bqngd,bknd->bngqk", qg, k).to(torch.float32) * scale
         kpos = torch.arange(sk, device=dev)
         if kv_len is not None:
@@ -158,6 +161,12 @@ def attention(
         out = torch.einsum("bngqk,bknd->bqngd", p.to(q.dtype), v)
         return out.reshape(b, sq, h, hd).to(q.dtype)
 
+    if isinstance(q, DTensor):
+        # on a mesh each device attends its own batch rows and heads, the
+        # repeated KV heads split as q's (dist.sharding.local_attention)
+        return local_attention(attention, q, _repeat_kv(k, groups), _repeat_kv(v, groups),
+                               causal=causal, q_offset=q_offset, kv_chunk=kv_chunk,
+                               q_chunk=q_chunk, kv_len=kv_len)
     n_kv, kv_chunk = _chunks(sk, kv_chunk, "key")
     n_q, q_chunk = _chunks(sq, q_chunk, "query")
     kh = _repeat_kv(k, groups).transpose(1, 2)  # (B, H, Sk, hd)
@@ -275,11 +284,18 @@ def ffn_init(gen: torch.Generator, d_model: int, d_ff: int, gated: bool, lead: t
     return p
 
 
+def tp(x: torch.Tensor) -> torch.Tensor:
+    """A (B, S, F) activation between a column- and a row-parallel product
+    in Megatron's layout on a mesh (batch over the data axes, F over
+    model), its gradient too; identity off a mesh."""
+    return constrain(x, ("pod", "data"), None, "model")
+
+
 def ffn(params, x: torch.Tensor, act: str = "gelu",
         compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    h = ACTS[act](dense(params["wi"], x, compute_dtype))
+    h = ACTS[act](tp(dense(params["wi"], x, compute_dtype)))
     if "wg" in params:
-        h = h * dense(params["wg"], x, compute_dtype)
+        h = h * tp(dense(params["wg"], x, compute_dtype))
     return dense(params["wo"], h, compute_dtype)
 
 
@@ -320,46 +336,135 @@ def moe(
 
     Returns ``(out, aux_loss)``. Each expert takes ``ceil(T*k/E*cf)``
     tokens; picks past that are dropped (GShard semantics), in token order.
-    The aux loss is Switch's ``E * sum_e f_e * p_e``."""
-    t, d = x.shape
-    e = params["router"]["w"].shape[1]
-    cap = int(np.ceil(t * top_k / e * capacity_factor))
+    The aux loss is Switch's ``E * sum_e f_e * p_e``. On a mesh (DTensor
+    tokens) by ``_moe_on_mesh``."""
+    if isinstance(x, DTensor):
+        return _moe_on_mesh(params, x, top_k, act, capacity_factor, compute_dtype)
+    probs, gate_vals, expert_idx = _moe_route(params, x, top_k)
+    return _moe_experts(params, x, probs, gate_vals, expert_idx, act, capacity_factor,
+                        compute_dtype)
 
+
+def _moe_route(params, x: torch.Tensor, top_k: int):
+    """The router's probabilities and each token's ``top_k`` experts with
+    their renormalised gates."""
     logits = dense(params["router"], x, torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = top_k_experts(probs, top_k)  # (T, k)
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+    return probs, gate_vals, expert_idx
 
-    # slot of each (token, k) pick within its expert: its rank among the
-    # earlier picks of the same expert (exact integers, so one flat cumsum
-    # gives the JAX package's chunked ranks)
+
+def _moe_experts(params, x: torch.Tensor, probs, gate_vals, expert_idx, act: str,
+                 capacity_factor: float, compute_dtype: torch.dtype):
+    """The dispatch into the experts' capacity buffer, their products, the
+    gated combine and the aux loss."""
+    t, d = x.shape
+    e, top_k = probs.shape[1], expert_idx.shape[1]
+    cap = int(np.ceil(t * top_k / e * capacity_factor))
+    flat_e, onehot, ranks = _moe_ranks(expert_idx, e)
+    out = _moe_slots(params, x, gate_vals, flat_e, ranks, cap, 0, cap, act, compute_dtype)
+    return out.to(x.dtype), _moe_aux(probs, onehot, t * top_k)
+
+
+def _moe_ranks(expert_idx: torch.Tensor, e: int):
+    """Each (token, k) pick's expert, the picks' one-hot rows, and each
+    pick's slot within its expert: its rank among the earlier picks of the
+    same expert (exact integers, so one flat cumsum gives the JAX
+    package's chunked ranks)."""
     flat_e = expert_idx.reshape(-1)  # (T*k,)
     onehot = F.one_hot(flat_e, e)
     ranks = (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat_e[:, None])[:, 0]
-    keep = ranks < cap
-    slot = torch.where(keep, flat_e * cap + ranks, e * cap)  # e*cap: sentinel row
+    return flat_e, onehot, ranks
 
-    # scatter the picks into an (E*cap + 1, d) buffer. Kept picks have
+
+def _moe_slots(params, x: torch.Tensor, gate_vals, flat_e, ranks, cap: int, lo: int,
+               width: int, act: str, compute_dtype: torch.dtype) -> torch.Tensor:
+    """The picks whose slot lies in ``[lo, lo + width)`` of their expert's
+    ``cap`` (all of them with ``lo = 0, width = cap``) through the experts:
+    dispatched into an (E, width, d) buffer, multiplied, gated and summed
+    into (T, d) per token; every other pick adds 0."""
+    t, d = x.shape
+    e, top_k = params["wi"].shape[0], gate_vals.shape[1]
+    keep = (ranks >= lo) & (ranks < min(lo + width, cap))
+    slot = torch.where(keep, flat_e * width + ranks - lo, e * width)  # e*width: sentinel row
+
+    # scatter the picks into an (E*width + 1, d) buffer. Kept picks have
     # distinct slots; only dropped ones share the sentinel row, which is cut
     # off before the products, so the order in which the card resolves
     # duplicate writes (index_put_ does not fix one) cannot reach the output
     xk = torch.repeat_interleave(x, top_k, dim=0)  # (T*k, d)
-    buf = x.new_zeros((e * cap + 1, d))
+    buf = x.new_zeros((e * width + 1, d))
     buf[slot] = xk
-    buf = buf[: e * cap].reshape(e, cap, d).to(compute_dtype)
+    buf = buf[: e * width].reshape(e, width, d).to(compute_dtype)
 
     h = ACTS[act](torch.bmm(buf, params["wi"].to(compute_dtype)))
     if "wg" in params:
         h = h * torch.bmm(buf, params["wg"].to(compute_dtype))
-    y = torch.bmm(h, params["wo"].to(compute_dtype))  # (E, cap, d)
+    y = torch.bmm(h, params["wo"].to(compute_dtype))  # (E, width, d)
 
-    y_flat = y.reshape(e * cap, d)
-    gathered = torch.where(keep[:, None], y_flat[torch.clamp_max(slot, e * cap - 1)], 0.0)
-    out = (gathered * gate_vals.reshape(-1)[:, None].to(gathered.dtype)).reshape(
+    y_flat = y.reshape(e * width, d)
+    gathered = torch.where(keep[:, None], y_flat[torch.clamp_max(slot, e * width - 1)], 0.0)
+    return (gathered * gate_vals.reshape(-1)[:, None].to(gathered.dtype)).reshape(
         t, top_k, d).sum(dim=1)
 
-    # load-balancing aux loss (Switch): E * sum_e f_e * p_e
+
+def _moe_aux(probs, onehot, picks: int):
+    """Switch's load-balancing loss ``E * sum_e f_e * p_e``."""
     me = probs.mean(dim=0)
-    ce = torch.bincount(flat_e, minlength=e).to(torch.float32) / (t * top_k)
-    aux = e * torch.sum(me * ce)
-    return out.to(x.dtype), aux
+    ce = onehot.sum(dim=0).to(torch.float32) / picks  # each expert's picks
+    return probs.shape[1] * torch.sum(me * ce)
+
+
+def _moe_on_mesh(params, x: DTensor, top_k: int, act: str, capacity_factor: float,
+                 compute_dtype: torch.dtype):
+    """``moe`` over DTensor tokens, by a local rule. The capacity and each
+    pick's slot are counted over all tokens, as on one device, so every
+    device takes all tokens (gathered over the mesh) and routes them. The
+    experts' work is split, not repeated: the capacity over the batch axes
+    ("pod", "data"; each device takes a contiguous block of every expert's
+    slots, ``_moe_slots``) and the experts' hidden dim over "model" (the
+    tensor-parallel split of ``wi``/``wg`` dim 2 and ``wo`` dim 1). Each
+    device's output is then a partial sum over both, reduced to ``x``'s
+    placements. The token gather, the router, the slot ranks and the aux
+    loss repeat on every device: (T, d) and (T*k, E) work against the
+    experts' (E, cap, d) x d_ff."""
+    mesh = x.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    xr = x.redistribute(mesh, rep)
+    router = {"router": {"w": params["router"]["w"].redistribute(mesh, rep)}}
+    probs, gate_vals, expert_idx = _moe_route(router, xr, top_k)
+    names, coord = mesh.mesh_dim_names, mesh.get_coordinate()
+    bdims = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    cut = tuple(isinstance(p, Shard) and p.dim == 2 for p in params["wi"].placements)
+    want = {"wi": 2, "wg": 2, "wo": 1}
+    local = {}
+    for k, dim in want.items():
+        if k in params:
+            w = params[k]
+            pl = tuple(Shard(dim) if c else Replicate() for c in cut)
+            # each device's slots give the weights a partial gradient over
+            # the batch axes
+            grad_pl = tuple(Partial() if i in bdims and not c else p
+                            for i, (c, p) in enumerate(zip(cut, pl)))
+            local[k] = (w.redistribute(mesh, pl) if tuple(w.placements) != pl else w).to_local(
+                grad_placements=grad_pl)
+    # this device's block of the capacity: its index over the batch axes
+    n, idx = 1, 0
+    for i in bdims:  # major to minor
+        idx, n = idx * mesh.size(i) + coord[i], n * mesh.size(i)
+    t = xr.shape[0]
+    e = probs.shape[1]
+    cap = int(np.ceil(t * top_k / e * capacity_factor))
+    width = -(-cap // n)
+    # x and the gates get partial gradients over both splits (the aux loss,
+    # the same on every device, gives probs a replicated one)
+    part = tuple(Partial() if c or i in bdims else Replicate() for i, c in enumerate(cut))
+    flat_e, onehot, ranks = _moe_ranks(expert_idx.to_local(), e)
+    out = _moe_slots(local, xr.to_local(grad_placements=part),
+                     gate_vals.to_local(grad_placements=part), flat_e, ranks, cap, idx * width,
+                     width, act, compute_dtype)
+    aux = _moe_aux(probs.to_local(), onehot, t * top_k)
+    out = DTensor.from_local(out.to(x.dtype), mesh, part, run_check=False)
+    return out.redistribute(mesh, x.placements), DTensor.from_local(aux, mesh, rep,
+                                                                    run_check=False)

@@ -92,12 +92,13 @@ def table_lookup(params: Dict, ids: torch.Tensor) -> torch.Tensor:
 
     With a dense ``items`` table this is ``jnp.take``'s lookup. With a
     split table, hot ids read ``items_hot`` (negative ids read its row 0)
-    and cold ids are compacted into a bounded buffer of
-    ``cap = max(int(n * COLD_FRACTION) // 256 * 256, 256)`` entries for
-    ``n`` ids and read from ``items_cold``. Cold references past ``cap``
-    get a zero row, as the JAX package's code gives them (graceful
-    degradation, like MoE token dropping). The compaction synchronises with
-    the device.
+    and the first ``cap = max(int(n * COLD_FRACTION) // 256 * 256, 256)``
+    cold references of the ``n`` ids, in order, read ``items_cold``. Cold
+    references past ``cap`` get a zero row, as the JAX package's bounded
+    compaction gives them (graceful degradation, like MoE token dropping).
+    Each reference's rank among the cold ones is a running count, so the
+    shapes never depend on the data: nothing waits for the device, and a
+    step over sharded ids (a cell on a mesh) traces as it runs.
     """
     if "items_hot" not in params:
         return lookup_ref(params["items"], ids)
@@ -107,11 +108,13 @@ def table_lookup(params: Dict, ids: torch.Tensor) -> torch.Tensor:
     n = flat.shape[0]
     cap = max(int(n * COLD_FRACTION) // 256 * 256, 256)
 
-    out = params["items_hot"].index_select(0, flat.clamp(0, h - 1))
-    cold_pos = torch.nonzero(flat >= h).squeeze(1)
-    out[cold_pos[cap:]] = 0.0
-    kept = cold_pos[:cap]
-    out[kept] = lookup_ref(params["items_cold"], flat[kept] - h)
+    hot = params["items_hot"].index_select(0, flat.clamp(0, h - 1))
+    cold = flat >= h
+    out = torch.where(cold[:, None], 0.0, hot)
+    if params["items_cold"].shape[0]:
+        kept = cold & (torch.cumsum(cold.to(torch.int32), 0) <= cap)
+        rows = lookup_ref(params["items_cold"], torch.where(kept, flat - h, 0))
+        out = torch.where(kept[:, None], rows, out)
     return out.reshape(shape + (d,))
 
 

@@ -9,8 +9,11 @@ layers run in a Python loop over ``L``: the JAX package scans them. Its
 ``remat`` and ``layer_groups`` become ``torch.utils.checkpoint`` around
 each layer or group of layers, and its ``jax.checkpoint`` around each loss
 chunk the same around each chunk: they only shape the backward, changing
-no value. Its ``constrain`` calls are sharding hints that do nothing on
-one device; the port leaves them out.
+no value. Its ``constrain`` calls stand at the same points (q/k/v of a
+prefill or training pass, and the ``seq_shard`` activation stash between
+layers): ``dist.sharding.constrain`` redistributes a DTensor against the
+active mesh (a cell's step on a mesh) and is identity otherwise, so on one
+device nothing changes.
 
 Entry points:
   init(gen, cfg, device=)                -> params
@@ -27,10 +30,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import devices
 from repro_torch.configs.base import LMConfig
+from repro_torch.dist.sharding import constrain, gather_fsdp, stack, unflatten, write_at
 from repro_torch.nn import layers as L
 from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -106,19 +111,29 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     gradients in one order run to run (``embed[ids]``'s ``index_put_``
     does not on the CPU)."""
     ids = tokens.to(params["embed"].device)
-    return F.embedding(ids, params["embed"]).to(torch.bfloat16)
+    x = F.embedding(ids, gather_fsdp(params["embed"])).to(torch.bfloat16)
+    # on a mesh: the vocab-sharded lookup's partial rows summed, batch on
+    # the data axes
+    return constrain(x, ("pod", "data"), None, None)
 
 
 def _attn_block(cfg: LMConfig, p, x: torch.Tensor, positions: torch.Tensor):
     """Causal self-attention over ``x``; returns (output, (k, v))."""
     b, s, _ = x.shape
-    q = L.dense(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = L.dense(p["wk"], x).reshape(b, s, cfg.n_kv, cfg.head_dim)
-    v = L.dense(p["wv"], x).reshape(b, s, cfg.n_kv, cfg.head_dim)
+    q = unflatten(L.tp(L.dense(p["wq"], x)), -1, (cfg.n_heads, cfg.head_dim))
+    k = unflatten(L.tp(L.dense(p["wk"], x)), -1, (cfg.n_kv, cfg.head_dim))
+    v = unflatten(L.tp(L.dense(p["wv"], x)), -1, (cfg.n_kv, cfg.head_dim))
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
+    if s > 1:
+        # pin the attention layout: batch over data axes, heads over model,
+        # full sequence
+        bax = ("pod", "data")
+        q = constrain(q, bax, None, "model", None)
+        k = constrain(k, bax, None, None, None)
+        v = constrain(v, bax, None, None, None)
     out = L.attention(q, k, v, causal=True)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = L.tp(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
     return L.dense(p["wo"], out), (k, v)
 
 
@@ -134,12 +149,32 @@ def _ffn_block(cfg: LMConfig, lp, hin: torch.Tensor, capacity_factor: Optional[f
     return out.reshape(b, s, d), aux
 
 
+def _constrain_seq(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """The residual stream after each block. Megatron-style sequence
+    parallelism: the activation stash sharded over the model axis along S
+    (the 340B-class memory budget). Otherwise replicated over model,
+    Megatron's tensor-parallel layout, which GSPMD picks for the JAX
+    package unprompted (DTensor, left to itself, keeps a row-parallel
+    product's partial sums and then replicates the next weight)."""
+    if cfg.seq_shard:
+        return constrain(x, ("pod", "data"), "model", None)
+    return constrain(x, ("pod", "data"), None, None)
+
+
+def _block_input(cfg: LMConfig, norm, x: torch.Tensor) -> torch.Tensor:
+    """A block's normed input; under sequence parallelism gathered along S
+    first (Megatron-SP's all-gather before the column-parallel products),
+    identity off a mesh."""
+    x = _norm(cfg, norm, x)
+    return constrain(x, ("pod", "data"), None, None) if cfg.seq_shard else x
+
+
 def _layer_fwd(cfg: LMConfig, lp, x: torch.Tensor, positions: torch.Tensor):
-    h, kv = _attn_block(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), positions)
-    x = x + h
-    out, aux = _ffn_block(cfg, lp, _norm(cfg, lp["ln2"], x),
+    h, kv = _attn_block(cfg, lp["attn"], _block_input(cfg, lp["ln1"], x), positions)
+    x = _constrain_seq(cfg, x + h)
+    out, aux = _ffn_block(cfg, lp, _block_input(cfg, lp["ln2"], x),
                           cfg.moe.capacity_factor if cfg.moe else None)
-    return x + out, aux, kv
+    return _constrain_seq(cfg, x + out), aux, kv
 
 
 def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
@@ -149,7 +184,7 @@ def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
 def _layers_fwd(cfg: LMConfig, lps: list, positions: torch.Tensor, x: torch.Tensor,
                 aux: torch.Tensor):
     for lp in lps:
-        x, a, _ = _layer_fwd(cfg, lp, x, positions)
+        x, a, _ = _layer_fwd(cfg, gather_fsdp(lp), x, positions)
         aux = aux + a
     return x, aux
 
@@ -161,7 +196,7 @@ def trunk(params, cfg: LMConfig, tokens: torch.Tensor):
     of ``n_layers // layer_groups`` layers in the backward, keeping only
     the groups' inputs; otherwise ``cfg.remat`` does so for each layer."""
     b, s = tokens.shape
-    x = _embed(params, tokens)
+    x = _constrain_seq(cfg, _embed(params, tokens))
     positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = unbind_layers(params)
@@ -178,7 +213,7 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor):
     """tokens (B, S) -> (logits (B, S, vocab) float32, aux loss).
     Materialises the full logits: for small scale and checks."""
     x, aux = trunk(params, cfg, tokens)
-    return L.dense(params["lm_head"], x, torch.float32), aux
+    return L.dense(gather_fsdp(params["lm_head"]), x, torch.float32), aux
 
 
 LOSS_CHUNK = 128  # sequence positions per cross-entropy chunk
@@ -188,11 +223,13 @@ def _chunk_nll(head, xc: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
     """The summed negative log-likelihood of one chunk: bfloat16 logits,
     the max subtracted in bfloat16 (no gradient through it), float32
     softmax statistics."""
-    logits = L.dense(head, xc, torch.bfloat16)
+    # on a mesh: vocab over model, batch over the data axes, the gradient too
+    logits = constrain(L.dense(head, xc, torch.bfloat16), ("pod", "data"), None, "model")
     m = logits.amax(dim=-1, keepdim=True).detach()
     shifted = (logits - m).to(torch.float32)
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
-    tgt = shifted.gather(-1, lc[..., None])[..., 0]
+    # on a mesh: the vocab-sharded pick's partial values summed
+    tgt = constrain(shifted.gather(-1, lc[..., None]), ("pod", "data"), None, None)[..., 0]
     return (lse - tgt).sum()
 
 
@@ -207,10 +244,11 @@ def loss_fn(params, cfg: LMConfig, batch) -> torch.Tensor:
     b, s, _ = x.shape
     labels = torch.as_tensor(batch["labels"], device=x.device).long()
     n_chunks, size = L._chunks(s, LOSS_CHUNK, "sequence")
+    head = gather_fsdp(params["lm_head"])
     total = 0.0
     for i in range(n_chunks):
         cut = slice(i * size, (i + 1) * size)
-        total = total + _remat(_chunk_nll, params["lm_head"], x[:, cut], labels[:, cut])
+        total = total + _remat(_chunk_nll, head, x[:, cut], labels[:, cut])
     return total / (b * s) + 0.01 * aux
 
 
@@ -241,14 +279,26 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor, max_len: Optional[int] 
     if max_len < s:
         raise ValueError(f"max_len {max_len} < prompt length {s}")
     x = _embed(params, tokens)
-    cache = init_cache(cfg, b, max_len, device=x.device)
+    # on a mesh the layers' k/v are stacked at the end (a DTensor cannot be
+    # written into a plain buffer); on one device they go into the cache
+    placed = isinstance(x, DTensor)
+    cache = None if placed else init_cache(cfg, b, max_len, device=x.device)
     positions = _positions(b, s, x.device)
+    kvs = []
     for i in range(cfg.n_layers):
-        x, _, (k, v) = _layer_fwd(cfg, layer_params(params, i), x, positions)
-        cache.k[i, :, :s] = k
-        cache.v[i, :, :s] = v
+        x, _, (k, v) = _layer_fwd(cfg, gather_fsdp(layer_params(params, i)), x, positions)
+        if placed:
+            kvs.append((k, v))
+        else:
+            cache.k[i, :, :s] = k
+            cache.v[i, :, :s] = v
+    if placed:
+        ks, vs = stack([k for k, _ in kvs]), stack([v for _, v in kvs])
+        if max_len > s:  # zeros after the prompt on the sequence axis
+            ks, vs = (F.pad(c, (0, 0, 0, 0, 0, max_len - s)) for c in (ks, vs))
+        cache = KVCache(k=ks, v=vs, length=0)
     x = _norm(cfg, params["ln_f"], x[:, -1:])
-    logits = L.dense(params["lm_head"], x, torch.float32)[:, 0]
+    logits = L.dense(gather_fsdp(params["lm_head"]), x, torch.float32)[:, 0]
     return logits, dataclasses.replace(cache, length=s)
 
 
@@ -268,19 +318,20 @@ def decode_step(params, cfg: LMConfig, cache: KVCache, token: torch.Tensor):
     x = _embed(params, token[:, None])
     positions = torch.full((b, 1), pos, device=x.device)
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+        lp = gather_fsdp(layer_params(params, i))
         xb = _norm(cfg, lp["ln1"], x)
-        q = L.dense(lp["attn"]["wq"], xb).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-        k = L.dense(lp["attn"]["wk"], xb).reshape(b, 1, cfg.n_kv, cfg.head_dim)
-        v = L.dense(lp["attn"]["wv"], xb).reshape(b, 1, cfg.n_kv, cfg.head_dim)
+        q = unflatten(L.dense(lp["attn"]["wq"], xb), -1, (cfg.n_heads, cfg.head_dim))
+        k = unflatten(L.dense(lp["attn"]["wk"], xb), -1, (cfg.n_kv, cfg.head_dim))
+        v = unflatten(L.dense(lp["attn"]["wv"], xb), -1, (cfg.n_kv, cfg.head_dim))
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
-        cache.k[i, :, pos] = k[:, 0]
-        cache.v[i, :, pos] = v[:, 0]
+        write_at(cache.k, (i, slice(None), pos), k[:, 0])
+        write_at(cache.v, (i, slice(None), pos), v[:, 0])
         out = L.attention(q, cache.k[i], cache.v[i], causal=False, kv_len=pos + 1)
-        x = x + L.dense(lp["attn"]["wo"], out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
+        out = L.tp(out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
+        x = _constrain_seq(cfg, x + L.dense(lp["attn"]["wo"], out))
         out, _ = _ffn_block(cfg, lp, _norm(cfg, lp["ln2"], x), None)
-        x = x + out
+        x = _constrain_seq(cfg, x + out)
     x = _norm(cfg, params["ln_f"], x)
-    logits = L.dense(params["lm_head"], x, torch.float32)[:, 0]
+    logits = L.dense(gather_fsdp(params["lm_head"]), x, torch.float32)[:, 0]
     return logits, dataclasses.replace(cache, length=pos + 1)

@@ -25,6 +25,15 @@ not a whole tree's, and its values are the out-of-place update's bit for
 bit. The clipped gradient is computed per leaf inside the expression
 (``clipped``) rather than as a second tree.
 
+On DTensor leaves (a cell's or ``Trainer``'s state on a mesh) the update
+keeps each leaf's placements: an elementwise update (SGD's, AdamW's) runs
+the same expression on every device's local block (``to_local()``, the
+gradient and moments already in the parameter's placements), so the
+donated update slices and writes local rows; Adafactor's factored
+statistics and RMS clip span the whole leaf, so its update runs on the
+DTensors themselves. The global norm reduces each leaf's partial sum of
+squares over the mesh (``full_tensor``) before adding the leaves.
+
 ``torch.optim`` is not used: its AdamW applies the weight decay before the
 Adam step (another rounding), its state is laid out differently and its
 Adafactor is another algorithm. The arithmetic here follows the JAX
@@ -41,6 +50,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.train.tree import flatten_up_to, tree_leaves, tree_map, tree_unflatten
 
@@ -68,7 +78,13 @@ def global_norm(grads: Any) -> torch.Tensor:
     leaves = tree_leaves(grads)
     if not leaves:
         return torch.zeros(())
-    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves))
+    return torch.sqrt(sum(_plain(torch.sum(g.float() ** 2)) for g in leaves))
+
+
+def _plain(x):
+    """A DTensor's whole value as a plain tensor (partial sums reduced over
+    the mesh); other values as they are."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def clip_scale(grads: Any, max_norm: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -103,10 +119,34 @@ def _apply(upd, outs: tuple, ins: tuple, donate: bool, elementwise: bool = True)
     """``upd(*ins)`` for one leaf: returned, or with ``donate`` copied into
     the tensors ``outs`` (and ``outs`` returned). An ``elementwise`` update
     is computed over slices of the leading axis of at most ``SLICE``
-    elements, which gives each element the same arithmetic."""
+    elements, which gives each element the same arithmetic. On DTensors an
+    elementwise update runs on the local blocks, any other on the
+    DTensors, its results moved to the placements of ``outs``."""
+    lead = outs[0]
+    if isinstance(lead, DTensor):
+        mesh, pl = lead.device_mesh, tuple(lead.placements)
+        # the gradient (and moments) in the parameter's placements;
+        # Adafactor's row/column statistics keep their own
+        ins = tuple(x.redistribute(mesh, pl) if x.shape == lead.shape
+                    and tuple(x.placements) != pl else x for x in ins)
+        if not elementwise:
+            new = [n.redistribute(o.device_mesh, o.placements)
+                   if tuple(n.placements) != tuple(o.placements) else n
+                   for n, o in zip(upd(*ins), outs)]
+            if not donate:
+                return tuple(new)
+            for dst, n in zip(outs, new):
+                dst.copy_(n)
+            return outs
+        got = _apply(upd, tuple(o.to_local() for o in outs), tuple(x.to_local() for x in ins),
+                     donate, elementwise)
+        if donate:
+            return outs
+        return tuple(DTensor.from_local(g, o.device_mesh, o.placements, run_check=False,
+                                        shape=o.shape, stride=o.stride())
+                     for g, o in zip(got, outs))
     if not donate:
         return upd(*ins)
-    lead = outs[0]
     rows = lead.shape[0] if lead.dim() else 1
     per = max(1, SLICE // max(lead[0].numel(), 1)) if lead.dim() and elementwise else rows
     for r in range(0, rows, per):
@@ -151,7 +191,7 @@ def _make_adamw(cfg: OptConfig):
 
     def init(params):
         def z(p):
-            return torch.zeros(p.shape, dtype=mdt, device=p.device)
+            return torch.zeros_like(p, dtype=mdt, memory_format=torch.contiguous_format)
 
         return {"m": tree_map(z, params), "v": tree_map(z, params), "step": _step0(params)}
 
@@ -159,8 +199,8 @@ def _make_adamw(cfg: OptConfig):
     def update(grads, state, params, donate: bool = False):
         scale, _ = clip_scale(grads, cfg.grad_clip)
         step = state["step"] + 1
-        bc1 = 1.0 - cfg.b1 ** step.to(torch.float32)
-        bc2 = 1.0 - cfg.b2 ** step.to(torch.float32)
+        bc1 = 1.0 - cfg.b1 ** _plain(step).to(torch.float32)
+        bc2 = 1.0 - cfg.b2 ** _plain(step).to(torch.float32)
 
         def upd(p, g, m, v):
             gf = clipped(g, scale).float()
@@ -198,7 +238,7 @@ def _make_adafactor(cfg: OptConfig):
     def update(grads, state, params, donate: bool = False):
         scale, _ = clip_scale(grads, cfg.grad_clip)
         step = state["step"] + 1
-        decay = 1.0 - step.to(torch.float32) ** -0.8
+        decay = 1.0 - _plain(step).to(torch.float32) ** -0.8
 
         def upd(p, g, *v):
             gf = clipped(g, scale).float()

@@ -9,8 +9,17 @@ there with ``torch.as_tensor``. ``TrainerConfig.donate`` (on by default,
 as in the JAX package) makes each step consume the parameters and
 optimizer state it is given and update them in place (``optimizer``'s
 donated update); ``init_state`` then copies what ``init_params()``
-returns, so the caller's tensors are never written. The JAX package's mesh
-and shardings wait for the dist slice.
+returns, so the caller's tensors are never written.
+
+With ``mesh=`` and ``in_shardings=(params, opt_state, batch)`` (trees of
+``dist.sharding.NamedSharding``, as a cell gives them; ``out_shardings``
+likewise for ``(params, opt_state, metrics)``) the state lives as
+DTensors: ``init_state`` distributes the parameters and the optimizer's
+state by ``in_shardings``, batches are distributed by the batch's
+placements, the step runs with the mesh active, each gradient is moved to
+its parameter's placements (a product over a sharded dimension leaves it
+``Partial``) before the update, and results are redistributed to
+``out_shardings``.
 """
 from __future__ import annotations
 
@@ -19,8 +28,10 @@ import functools
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import devices
+from repro_torch.dist import sharding as shd
 from repro_torch.train import ft as ft_mod
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
@@ -36,8 +47,17 @@ def value_and_grad(loss_fn: Callable, params: Any, *args):
         live = [p.detach().requires_grad_() for p in flat]
         loss = loss_fn(tree_unflatten(params, live), *args)
         got = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, got)]
+    grads = [torch.zeros_like(p) if g is None else _like(g, p) for p, g in zip(live, got)]
     return loss.detach(), tree_unflatten(params, grads)
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient in its parameter's placements: a DTensor gradient that
+    arrives ``Partial`` (or otherwise placed) is reduce-scattered or
+    redistributed; a plain one is returned as it is."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def grad_sum(loss_fn: Callable, params: Any, parts: list):
@@ -48,7 +68,8 @@ def grad_sum(loss_fn: Callable, params: Any, parts: list):
     alive. Returns (losses, sums); the caller's tensors are left as they
     are."""
     flat = tree_leaves(params)
-    sums = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat]
+    sums = [torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
+            for p in flat]
     losses = []
     for part in parts:
         with torch.enable_grad():
@@ -62,14 +83,20 @@ def grad_sum(loss_fn: Callable, params: Any, parts: list):
 
 
 def _add_grad(acc: torch.Tensor, p: torch.Tensor) -> None:
-    acc.add_(p.grad)
+    acc.add_(_like(p.grad, acc))
     p.grad = None
 
 
-def split(batch: Any, mb: int) -> list:
-    """Every batch leaf split along its leading axis into ``mb`` parts."""
-    return [tree_map(lambda x: x.reshape((mb, -1) + tuple(x.shape[1:]))[i], batch)
-            for i in range(mb)]
+def split(batch: Any, mb: int, batch_axes: tuple = ()) -> list:
+    """Every batch leaf split along its leading axis into ``mb`` parts. The
+    ``(mb, B / mb, ...)`` view is constrained to ``batch_axes`` on its
+    second dimension (``dist.sharding.constrain``: identity off a mesh), so
+    each part stays sharded as the batch was."""
+    def view(x):
+        x = shd.unflatten(x, 0, (mb, x.shape[0] // mb))
+        return shd.constrain(x, None, batch_axes, *(None,) * (x.dim() - 2))
+    parts = tree_map(view, batch)
+    return [tree_map(lambda x: x[i], parts) for i in range(mb)]
 
 
 def batch_to(batch: Any, device: torch.device) -> Any:
@@ -95,8 +122,16 @@ class Trainer:
         opt_cfg: opt_mod.OptConfig,
         tcfg: TrainerConfig,
         device: str | torch.device = devices.DEFAULT_DEVICE,
+        mesh=None,
+        in_shardings=None,
+        out_shardings=None,
     ):
+        if (mesh is None) != (in_shardings is None):
+            raise ValueError("mesh and in_shardings go together")
         self.device = devices.resolve(device)
+        self.mesh = mesh
+        self.in_shardings = in_shardings
+        self.out_shardings = out_shardings
         self.loss_fn = loss_fn
         self.init_params = init_params
         self.opt_init, self.opt_update = opt_mod.make(opt_cfg)
@@ -111,9 +146,17 @@ class Trainer:
         leading axis, the gradients summed in float32 (``grad_sum``) and
         averaged, and the loss is the microbatches' mean. With ``donate``
         the step consumes ``params`` and ``opt_state``."""
+        if self.mesh is None:
+            return self._step(params, opt_state, batch)
+        with shd.on_mesh(self.mesh):
+            out = self._step(params, opt_state, batch)
+        return out if self.out_shardings is None else shd.redistribute(out, self.out_shardings)
+
+    def _step(self, params, opt_state, batch):
         mb = self.tcfg.microbatches
         if mb > 1:
-            losses, grads = grad_sum(self.loss_fn, params, split(batch, mb))
+            axes = () if self.mesh is None else shd.batch_axes(self.mesh)
+            losses, grads = grad_sum(self.loss_fn, params, split(batch, mb, axes))
             grads = tree_map(lambda g: g.div_(mb), grads)
             loss = torch.stack(losses).mean()
         else:
@@ -126,9 +169,14 @@ class Trainer:
         ``donate`` the parameters are copies, since the steps write them."""
         copy = self.tcfg.donate
         params = tree_map(lambda t: t.to(self.device, copy=copy), self.init_params())
-        return {"params": params, "opt": self.opt_init(params)}
+        if self.mesh is None:
+            return {"params": params, "opt": self.opt_init(params)}
+        params = shd.place(params, self.in_shardings[0])
+        return {"params": params, "opt": shd.place(self.opt_init(params), self.in_shardings[1])}
 
     def to_device(self, batch) -> Any:
+        if self.mesh is not None:
+            return shd.place(batch_to(batch, self.device), self.in_shardings[2])
         return batch_to(batch, self.device)
 
     def fit(self, batch_fn: Callable[[int], Dict],

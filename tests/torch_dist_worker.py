@@ -38,6 +38,36 @@ def _save(out_dir, name, rank, result):
     torch.save(result, os.path.join(out_dir, f"{name}_{rank}.pt"))
 
 
+@contextlib.contextmanager
+def recording_grads():
+    """Steps built inside keep, at each optimizer update, the whole
+    gradients they hand it (a DTensor leaf gathered with ``full_tensor``,
+    a tensor copied): yields the list they are appended to, one tree a
+    step. It wraps ``train.optimizer.make``, which the steps of
+    ``launch.steps`` call when they are built."""
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.tree import tree_map
+
+    make, kept = opt_mod.make, []
+
+    def whole(g):
+        return g.full_tensor() if hasattr(g, "full_tensor") else g.detach().clone()
+
+    def recording_make(cfg):
+        init, update = make(cfg)
+
+        def update_recording(grads, state, params, donate=False):
+            kept.append(tree_map(whole, grads))
+            return update(grads, state, params, donate=donate)
+        return init, update_recording
+
+    opt_mod.make = recording_make
+    try:
+        yield kept
+    finally:
+        opt_mod.make = make
+
+
 def grasp_steps(rank, world, out_dir, spec, cfg, params, batch, steps):
     """The GRASP GIN step with both schedules from the same parameters on
     this rank's block of ``batch`` (the JAX package's layout): each step's
@@ -80,3 +110,186 @@ def compressed_psums(rank, world, out_dir, grads_by_rank, rounds):
             mean, err = compression.compressed_psum(grads, err)
             out.append((mean, err))
     _save(out_dir, "compressed_psums", rank, out)
+
+
+def lm_cell_steps(rank, world, out_dir, cfg, shape, mesh_shape, params, batches):
+    """The LM train cell (``launch.steps._lm_train_cell``) on a
+    ``mesh_shape`` debug mesh of this group, from the parameters
+    ``params`` (the JAX package's, as numpy) and the optimizer's zeros:
+    one step a batch. Each step's loss and the whole parameters and
+    optimizer state after the last step (gathered from every rank's
+    shards), with the whole gradients each step handed its optimizer."""
+    from repro_torch import convert
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train.tree import tree_map
+
+    torch.set_num_threads(1)
+    with gloo_group(os.path.join(out_dir, "store_dir"), rank, world):
+        mesh = make_debug_mesh(*mesh_shape, device_type="cpu")
+        with recording_grads() as grads:
+            cell = steps._lm_train_cell(cfg, shape, mesh)
+        opt_init = steps.lm_train_step(cfg, shape, device="cpu")[0]
+        p = shd.place(convert.lm_params_from_numpy(params, "cpu"), cell.in_shardings[0])
+        s = shd.place(opt_init(convert.lm_params_from_numpy(params, "cpu")), cell.in_shardings[1])
+        losses = []
+        for b in batches:
+            p, s, m = cell.step_fn(p, s, shd.place(b, cell.in_shardings[2]))
+            losses.append(m["loss"].full_tensor())
+        whole = tree_map(lambda x: x.full_tensor(), {"params": p, "opt": s})
+        placements = [repr(x.placements) for x in tree_leaves_of(p)]
+    _save(out_dir, "lm_cell_steps", rank, {"losses": losses, **whole, "placements": placements,
+                                           "grads": grads})
+
+
+def tree_leaves_of(tree):
+    from repro_torch.train.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def gnn_cell_steps(rank, world, out_dir, cases, mesh_shape):
+    """One step of each GNN train cell (``launch.steps._gnn_train_cell``) on
+    a ``mesh_shape`` debug mesh of this group: ``cases`` maps a name to
+    ``(cfg, shape, params, batch)`` (the JAX package's parameters and
+    batch, as numpy). The loss, the whole gradients handed the optimizer
+    and the whole new parameters of each."""
+    from repro_torch import convert
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train.tree import tree_map
+
+    torch.set_num_threads(1)
+    out = {}
+    with gloo_group(os.path.join(out_dir, "store_dir"), rank, world):
+        mesh = make_debug_mesh(*mesh_shape, device_type="cpu")
+        for name, (cfg, shape, params, batch) in cases.items():
+            with recording_grads() as grads:
+                cell = steps._gnn_train_cell(cfg, shape, mesh)
+            p = convert.gnn_params_from_numpy(params, "cpu")
+            s = steps._adamw()[0](p)
+            p, s, m = cell.step_fn(shd.place(p, cell.in_shardings[0]),
+                                   shd.place(s, cell.in_shardings[1]),
+                                   shd.place(batch, cell.in_shardings[2]))
+            out[name] = {"loss": m["loss"].full_tensor(), "grads": grads[0],
+                         "params": tree_map(lambda x: x.full_tensor(), p)}
+    _save(out_dir, "gnn_cell_steps", rank, out)
+
+
+def lm_serving_cells(rank, world, out_dir, cfg, batch, seq, length, mesh_shape, seed):
+    """The LM prefill and decode cells on a ``mesh_shape`` debug mesh of
+    this group, with bfloat16 parameters from ``tfm.init(seed)``: the
+    prefill cell on ``length`` prompt tokens, then one step of the decode
+    cell on a cache of ``seq`` positions holding that prefill (the cache
+    sharded on its sequence axis over "model"). The whole logits and
+    caches, and the same through ``tfm.prefill`` / ``tfm.decode_step``
+    unsharded."""
+    import numpy as np
+
+    from repro_torch.configs.base import LMShape
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.train.tree import tree_map
+
+    torch.set_num_threads(1)
+    with gloo_group(os.path.join(out_dir, "store_dir"), rank, world):
+        mesh = make_debug_mesh(*mesh_shape, device_type="cpu")
+        params = tree_map(lambda t: t.to(torch.bfloat16),
+                          tfm.init(torch.Generator().manual_seed(seed), cfg, device="cpu"))
+        rng = np.random.default_rng(seed)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, length)).astype(np.int32))
+        token = torch.from_numpy(rng.integers(0, cfg.vocab, (batch,)).astype(np.int32))
+        pc = steps._lm_prefill_cell(cfg, LMShape("p", "prefill", length, batch), mesh)
+        dc = steps._lm_decode_cell(cfg, LMShape("d", "decode", seq, batch), mesh)
+        plg, pcache = pc.step_fn(shd.place(params, pc.in_shardings[0]),
+                                 shd.place(tokens, pc.in_shardings[1]))
+        want_plg, want_cache = tfm.prefill(params, cfg, tokens, max_len=seq)
+        cache = tfm.KVCache(k=want_cache.k.clone(), v=want_cache.v.clone(),
+                            length=torch.tensor(length, dtype=torch.int32))
+        dlg, dcache = dc.step_fn(shd.place(params, dc.in_shardings[0]),
+                                 shd.place(cache, dc.in_shardings[1]),
+                                 shd.place(token, dc.in_shardings[2]))
+        want_dlg, want_dcache = tfm.decode_step(params, cfg, want_cache, token)
+        out = {"prefill": (plg.full_tensor(), pcache.k.full_tensor(), pcache.v.full_tensor()),
+               "decode": (dlg.full_tensor(), dcache.k.full_tensor(), dcache.v.full_tensor(),
+                          int(dcache.length)),
+               "cache_placements": repr(dcache.k.placements),
+               "want_prefill": (want_plg, want_cache.k[:, :, :length], want_cache.v[:, :, :length]),
+               "want_decode": (want_dlg, want_dcache.k, want_dcache.v, want_dcache.length)}
+    _save(out_dir, "lm_serving_cells", rank, out)
+
+
+def local_rule_grads(rank, world, out_dir, table, x, ids, weights, mesh_shape):
+    """``dist.sharding``'s local rules on a ``mesh_shape`` debug mesh, with
+    the (E,) ids sharded on their rows over every mesh axis, as a GNN
+    cell's edges: ``nn.gnn``'s row gather of the replicated (n, d)
+    ``table`` by ``ids``, and its segment sum, max and min of the (E, d)
+    rows ``x`` (placed as the ids) into n segments. For each, the whole
+    output and the whole gradient of ``(out * weights[name]).sum()``."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.nn import gnn
+
+    torch.set_num_threads(1)
+    n = table.shape[0]
+    rules = {"rows": lambda t, i: gnn._rows(t, i),
+             "segment_sum": lambda r, i: gnn._seg_sum(r, i, n),
+             "segment_max": lambda r, i: gnn._seg_extreme(r, i, n, "amax"),
+             "segment_min": lambda r, i: gnn._seg_extreme(r, i, n, "amin")}
+    out = {}
+    with gloo_group(os.path.join(out_dir, "store_dir"), rank, world):
+        mesh = make_debug_mesh(*mesh_shape, device_type="cpu")
+        edges = shd.ns(mesh, tuple(mesh.mesh_dim_names))
+        with shd.on_mesh(mesh):
+            for name, rule in rules.items():
+                src = table if name == "rows" else x
+                arg = shd.place(src.clone(), edges if name != "rows" else shd.ns(mesh))
+                arg.requires_grad_(True)
+                got = shd.redistribute(rule(arg, shd.place(ids, edges)), shd.ns(mesh))
+                (got * shd.place(weights[name], shd.ns(mesh))).sum().backward()
+                out[name] = (got.full_tensor().detach(), arg.grad.full_tensor())
+    _save(out_dir, "local_rule_grads", rank, out)
+
+
+def lm_trainer_fits(rank, world, out_dir, cfg, shape, mesh_shape, params, steps, ckpt_dir):
+    """``Trainer(mesh=, in_shardings=, out_shardings=)`` with the LM train
+    cell's shardings on a ``mesh_shape`` debug mesh of this group, from the
+    parameters ``params`` (numpy), 2 microbatches, ``steps`` steps of the
+    port's seeded LM batches: a clean fit, then a fit that checkpoints every
+    2 steps into ``ckpt_dir`` (shared by the ranks) with failures injected
+    at steps 1 and 3. Each fit's history and whole final state, and the
+    restarts of the second."""
+    from repro_torch import convert
+    from repro_torch.data import pipeline
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.train import ft, optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.tree import tree_map
+
+    torch.set_num_threads(1)
+    out = {}
+    with gloo_group(os.path.join(out_dir, "store_dir"), rank, world):
+        mesh = make_debug_mesh(*mesh_shape, device_type="cpu")
+        cell = steps_mod._lm_train_cell(cfg, shape, mesh)
+        batch_fn = pipeline.make_batch_fn("lm", cfg, shape, seed=5)
+        for name, ckpt, injector in (("clean", None, None),
+                                     ("restarted", ckpt_dir, ft.FailureInjector(fail_at=(1, 3)))):
+            tr = Trainer(lambda p, b: tfm.loss_fn(p, cfg, b),
+                         lambda: convert.lm_params_from_numpy(params, "cpu"),
+                         optimizer.OptConfig(name="adamw", lr=1e-3),
+                         TrainerConfig(num_steps=steps, microbatches=2, log_every=1,
+                                       ckpt_dir=ckpt, ckpt_every=2), device="cpu", mesh=mesh,
+                         in_shardings=cell.in_shardings,
+                         out_shardings=(cell.out_shardings[0], cell.out_shardings[1],
+                                        shd.ns(mesh)))
+            state = tr.fit(batch_fn, injector=injector)
+            out[name] = {"history": tr.history, "restarts": tr.restarts,
+                         "state": tree_map(lambda x: x.full_tensor(), state)}
+    _save(out_dir, "lm_trainer_fits", rank, out)
