@@ -185,8 +185,9 @@ Phases, each of which must pass:
      the saved bits) and Trainer(mesh=, in_shardings=, out_shardings=) 3
      steps bit for bit against the unsharded Trainer under deterministic
      algorithms; (e) ``python -m repro_torch.launch.dryrun --mesh both``
-     over minitron-8b's three LM cells, gin-tu:molecule and
-     mind:retrieval_cand: every cell "ok", each record printed.
+     over minitron-8b's three LM cells, gin-tu:molecule,
+     mind:retrieval_cand, mind:train_batch, nequip:ogb_products and
+     moonshot-v1-16b-a3b:decode_32k: every cell "ok", each record printed.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
@@ -324,7 +325,10 @@ LM_TRAIN_SMALL = dict(n_layers=2, d_model=256, n_heads=8, n_kv=4, d_ff=1024, voc
 MESH_DECODE_BATCH = 4          # decode_32k's 128 cut: two 17.2 GB caches for the comparison
 MESH_DECODE_LENGTH = 32000     # the cache's filled prefix (of 32,768 positions)
 MESH_DRYRUN_CELLS = ("minitron-8b:train_4k,minitron-8b:prefill_32k,minitron-8b:decode_32k,"
-                     "gin-tu:molecule,mind:retrieval_cand")
+                     "gin-tu:molecule,mind:retrieval_cand,"
+                     # the cells the local rules LocalTake, local_edge_map and
+                     # local_decode carry (the card's torch refuses DTensor's own)
+                     "mind:train_batch,nequip:ogb_products,moonshot-v1-16b-a3b:decode_32k")
 MESH_DRYRUN_TIMEOUT = 400
 
 

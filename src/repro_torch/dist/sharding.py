@@ -21,8 +21,10 @@ Below the specs: trees of DTensors (``place`` real values by a sharding
 tree, ``abstract`` meta ones, ``redistribute``, FSDP's ``gather_fsdp``),
 and local rules for what DTensor has no rule for, or one that a torch
 release refuses: segment sums, maxima and minima over sharded rows, row
-gathers by sharded ids, attention on each device's block, a write into a
-sharded KV cache, uneven splits, stacking.
+gathers by sharded ids, a lookup in a row-sharded table, per-edge work on
+each device's edges, attention on each device's block, decode attention
+over a sequence-sharded cache, a write into a sharded KV cache, uneven
+splits, stacking, merging a sharded dim with a whole one.
 """
 from __future__ import annotations
 
@@ -192,6 +194,26 @@ def unflatten(x, dim: int, sizes: tuple):
             x = x.redistribute(x.device_mesh, [Replicate() if c else p
                                                for c, p in zip(cut, x.placements)])
     return x.reshape(tuple(x.shape[:dim]) + tuple(sizes) + tuple(x.shape[dim + 1:]))
+
+
+def flatten(x, start: int, end: int):
+    """``x.flatten(start, end)``, the inverse of ``unflatten``. On a DTensor
+    whose dims ``start + 1 .. end`` are whole on every device (``start``
+    itself may be sharded, as heads are) it is a block-local reshape: each
+    device merges its own block, which is exact under that condition.
+    DTensor's own view rule for such a merge differs between torch
+    releases."""
+    if not isinstance(x, DTensor):
+        return x.flatten(start, end)
+    start, end = start % x.dim(), end % x.dim()
+    pl = []
+    for p in x.placements:
+        if isinstance(p, Shard) and start < p.dim <= end:
+            raise ValueError(f"flatten({start}, {end}) of {tuple(x.shape)} placed {x.placements}: "
+                             "only the leading dim may be sharded")
+        pl.append(Shard(p.dim - (end - start)) if isinstance(p, Shard) and p.dim > end else p)
+    shape = tuple(x.shape[:start]) + (math.prod(x.shape[start:end + 1]),) + tuple(x.shape[end + 1:])
+    return _wrap(x.to_local().flatten(start, end), x.device_mesh, pl, shape)
 
 
 def write_at(buf, index: tuple, value) -> None:
@@ -479,6 +501,7 @@ def stack(tensors: list, dim: int = 0):
     first = tensors[0]
     if not isinstance(first, DTensor):
         return torch.stack(tensors, dim)
+    dim = dim % (first.dim() + 1)
     pl = tuple(first.placements)
     if any(tuple(t.placements) != pl for t in tensors):
         raise ValueError("stack: the tensors are placed differently")
@@ -504,8 +527,9 @@ def local_segment_sum(x: DTensor, ids: DTensor, n: int) -> DTensor:
 
 
 class LocalRows(torch.autograd.Function):
-    """``table.index_select(0, idx)`` for DTensors, by a local rule (the
-    gather of a message pass, and its transpose): on each mesh dim where
+    """``table.index_select(0, idx)`` for DTensors (a plain operand read as
+    replicated), by a local rule (the gather of a message pass, and its
+    transpose): on each mesh dim where
     ``idx`` is sharded on its rows the table is replicated and each device
     takes the rows of its local indices (the result is sharded there);
     elsewhere the table keeps a replicated or feature-sharded layout. Its
@@ -516,7 +540,10 @@ class LocalRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, idx):
-        mesh = idx.device_mesh
+        mesh = (idx if isinstance(idx, DTensor) else table).device_mesh
+        whole = [Replicate()] * mesh.ndim  # a plain operand is replicated
+        table, idx = (x if isinstance(x, DTensor) else
+                      DTensor.from_local(x, mesh, whole, run_check=False) for x in (table, idx))
         t_pl, out_pl, grad_pl = [], [], []
         for ip, tp in zip(idx.placements, table.placements):
             cut = isinstance(ip, Shard) and ip.dim == 0
@@ -531,6 +558,7 @@ class LocalRows(torch.autograd.Function):
         il = idx.to_local()
         ctx.save_for_backward(il)
         ctx.layout = (mesh, tuple(table.shape), out_pl, grad_pl)
+        ctx.set_materialize_grads(False)  # rows no loss reaches get no gradient
         return _wrap(table.to_local().index_select(0, il), mesh, out_pl,
                      (idx.shape[0],) + tuple(table.shape[1:]))
 
@@ -538,6 +566,8 @@ class LocalRows(torch.autograd.Function):
     def backward(ctx, g):
         (il,) = ctx.saved_tensors
         mesh, shape, out_pl, grad_pl = ctx.layout
+        if g is None:
+            return None, None
         if tuple(g.placements) != tuple(out_pl):
             g = g.redistribute(mesh, out_pl)
         gl = g.to_local()
@@ -601,3 +631,204 @@ class LocalSegmentExtreme(torch.autograd.Function):
         ties = ties.redistribute(mesh, out_pl).to_local().index_select(0, il)
         gx = torch.where(hit, g.to_local().index_select(0, il) / ties, 0.0)
         return _wrap(gx, mesh, x_pl, x_shape), None, None, None
+
+
+class LocalTake(torch.autograd.Function):
+    """``lookup_ref(table, ids)`` (``jnp.take(table, ids, axis=0)``) for a
+    DTensor ``table``, by a local rule: a vocab-parallel lookup. On each
+    mesh dim that shards the table's rows the ids are replicated (the ids
+    are gathered, never the table), each device takes the rows of the ids
+    that fall in its own row block (by the block's global offset) and
+    zeroes the others, and the result is ``Partial(sum)`` there, which is
+    what GSPMD makes of ``jnp.take`` on a row-sharded table; it is reduced
+    to the ids' own placements before it is returned. On a mesh dim where
+    the table is replicated the ids keep their layout. An id in [-V, 0)
+    counts from the end and one outside [-V, V) gives a NaN row on every
+    device, so a NaN row in the sum. The backward adds each row gradient
+    whose id a device holds into its own row block (a local
+    ``index_add_``): the gradient is sharded as the table (and
+    ``Partial(sum)`` where the table is replicated and the ids are not).
+    DTensor's own rules for ``index_select`` on a row-sharded table and
+    its backward differ between torch releases."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        mesh = table.device_mesh
+        if not isinstance(ids, DTensor):
+            ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        id_pl, part_pl, grad_pl = [], [], []
+        for tp, ip in zip(table.placements, ids.placements):
+            rows = isinstance(tp, Shard) and tp.dim == 0
+            if not rows and not isinstance(tp, Replicate):
+                raise ValueError(f"table placed {table.placements}: only rows may be sharded")
+            id_pl.append(Replicate() if rows else ip)
+            part_pl.append(Partial() if rows else ip)
+            grad_pl.append(tp if rows else Partial() if isinstance(ip, Shard) else Replicate())
+        out_pl = tuple(ids.placements)
+        if out_pl != tuple(id_pl):
+            ids = ids.redistribute(mesh, id_pl)
+        il, tl = ids.to_local(), table.to_local()
+        n, lo = (x[0] for x in compute_local_shape_and_global_offset(table.shape, mesh,
+                                                                      table.placements))
+        v = table.shape[0]
+        wrapped = torch.where(il < 0, il + v, il)
+        local = wrapped - lo
+        mine = (local >= 0) & (local < n)
+        safe = local.clamp(0, max(n - 1, 0))
+        feat = tuple(tl.shape[1:])
+        lift = tuple(il.shape) + (1,) * len(feat)
+        got = (tl.index_select(0, safe.reshape(-1)).reshape(tuple(il.shape) + feat) if n
+               else tl.new_zeros(tuple(il.shape) + feat))
+        got = torch.where(mine.reshape(lift), got, got.new_zeros(()))
+        ok = (wrapped >= 0) & (wrapped < v)
+        got = torch.where(ok.reshape(lift), got, got.new_full((), float("nan")))
+        ctx.save_for_backward(safe, mine)
+        ctx.layout = (mesh, tuple(table.shape), n, part_pl, grad_pl)
+        shape = tuple(ids.shape) + tuple(table.shape[1:])
+        return _wrap(got, mesh, part_pl, shape).redistribute(mesh, out_pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        safe, mine = ctx.saved_tensors
+        mesh, shape, n, part_pl, grad_pl = ctx.layout
+        whole = [Replicate() if isinstance(p, Partial) else p for p in part_pl]
+        if tuple(g.placements) != tuple(whole):
+            g = g.redistribute(mesh, whole)  # each device: the rows of every id it looked up
+        gl = g.to_local()
+        feat = tuple(gl.shape[safe.dim():])
+        rows = torch.where(mine.reshape(tuple(mine.shape) + (1,) * len(feat)), gl, 0.0)
+        out = gl.new_zeros((n,) + feat).index_add_(0, safe.reshape(-1), rows.reshape((-1,) + feat))
+        return _wrap(out, mesh, grad_pl, shape), None
+
+
+class _LocalEdgeMap(torch.autograd.Function):
+    """``local_edge_map``'s autograd: the local function's own graph is
+    built in the forward (on each device's blocks) and differentiated in
+    the backward, and the gradients are wrapped with the placements their
+    inputs had on the mesh."""
+
+    @staticmethod
+    def forward(ctx, fn, ids, reduced, n_rows, *args):
+        ctx.set_materialize_grads(False)
+        mesh = ids.device_mesh
+        cut = [isinstance(p, Shard) for p in ids.placements]  # (E,) ids: Shard(0)
+        row_pl = [Shard(0) if c else Replicate() for c in cut]
+        whole = [Replicate()] * mesh.ndim
+        part_pl = [Partial() if c else Replicate() for c in cut]
+        locals_, grads_pl = [], []
+        for i, a in enumerate(args):
+            pl = row_pl if i < n_rows else whole
+            if isinstance(a, DTensor):
+                if tuple(a.placements) != tuple(pl):
+                    a = a.redistribute(mesh, pl)
+                a = a.to_local()
+            locals_.append(a)
+            # a row input's gradient is sharded as its rows; a weight that
+            # meets every device's own edges gets a partial sum of its gradient
+            grads_pl.append(row_pl if i < n_rows else part_pl)
+        want = [isinstance(a, torch.Tensor) and ctx.needs_input_grad[4 + i]
+                for i, a in enumerate(args)]
+        with torch.enable_grad():
+            live = [a.detach().requires_grad_() if w else a for a, w in zip(locals_, want)]
+            outs = fn(*live)
+        ctx.graph = ([x for x, w in zip(live, want) if w], outs)
+        ctx.layout = (mesh, row_pl, whole, grads_pl, want,
+                      [tuple(a.shape) if w else None for a, w in zip(args, want)])
+        e = ids.shape[0]
+        wrapped = []
+        for o in outs:
+            if o is None:
+                wrapped.append(None)
+            elif reduced:  # (n, ...) tables each device summed over its own edges
+                wrapped.append(_wrap(o.detach(), mesh, part_pl, tuple(o.shape)))
+            else:
+                wrapped.append(_wrap(o.detach(), mesh, row_pl, (e,) + tuple(o.shape[1:])))
+        ctx.mark_non_differentiable(*[w for w in wrapped
+                                      if w is not None and not w.dtype.is_floating_point])
+        ctx.reduced = reduced
+        return tuple(wrapped)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, row_pl, whole, grads_pl, want, shapes = ctx.layout
+        inputs, outs = ctx.graph
+        ctx.graph = None
+        pairs = []
+        for o, g in zip(outs, grads):
+            if o is None or g is None or not o.requires_grad:
+                continue
+            pl = whole if ctx.reduced else row_pl  # a partial sum's gradient is whole everywhere
+            if tuple(g.placements) != tuple(pl):
+                g = g.redistribute(mesh, pl)
+            pairs.append((o, g.to_local()))
+        got = iter(torch.autograd.grad([o for o, _ in pairs], inputs, [g for _, g in pairs],
+                                       allow_unused=True) if pairs and inputs else ())
+        out = []
+        for w, pl, shape in zip(want, grads_pl, shapes):
+            gl = next(got, None) if w else None
+            out.append(None if gl is None else _wrap(gl, mesh, pl, shape))  # the input's shape
+        return (None, None, None, None, *out)
+
+
+def local_edge_map(fn, ids: DTensor, rows: list, shared: list, reduced: bool = False) -> tuple:
+    """``fn(*rows, *shared)`` on each device's edges, by a local rule: the
+    per-edge work of a message pass (geometry, radial nets, messages)
+    without DTensor's dispatch of each small operation, whose broadcast
+    and stacking rules differ between torch releases. ``rows`` are (E,
+    ...) tensors laid out as the edge ids ``ids`` (sharded on their rows
+    where ``ids`` is, whole elsewhere; None passes as None), ``shared``
+    are weights, replicated on every device (tensors, None). ``fn``
+    returns a tuple of tensors (or None): (E, ...) rows, sharded as the
+    edges, or with ``reduced`` (n, ...) tables that each device summed
+    over its own edges, ``Partial(sum)`` on the mesh dims that shard the
+    edges. The gradient of a weight is such a partial sum too, and is
+    declared so: read as replicated it would be each device's share
+    alone."""
+    return _LocalEdgeMap.apply(fn, ids, reduced, len(rows), *rows, *shared)
+
+
+def local_decode(decode, q: DTensor, k: DTensor, v: DTensor, **kw) -> DTensor:
+    """``decode(q, k, v, kpos, **kw)`` (one query position a row against a
+    (B, S, KV, hd) cache; ``kpos`` the keys' positions) on each device's
+    block, by a local rule. The cache may be sharded on its batch rows
+    (dim 0) and its sequence (dim 1): ``q`` takes the cache's batch
+    sharding and is whole elsewhere, so where the sequence is split each
+    device attends every head against its own block of keys, and the
+    softmax over keys is taken across the devices that split them (an
+    all-reduce of each row's maximum and of its sum, the JAX package's
+    cell's softmax over a sharded key axis); the product with the values
+    is a partial sum there, reduced into ``q``'s placements. The cache is
+    never gathered. On a mesh that splits no key, ``decode`` runs on the
+    local blocks as it runs on one device. DTensor's own dispatch of the
+    grouped products flattens a sharded head dim (refused by some torch
+    releases)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, q_pl = q.device_mesh, tuple(q.placements)
+    if tuple(v.placements) != tuple(k.placements):
+        v = v.redistribute(mesh, k.placements)
+    keys = [isinstance(p, Shard) and p.dim == 1 for p in k.placements]
+    if any(isinstance(p, Shard) and p.dim > 1 or isinstance(p, Partial) for p in k.placements):
+        raise ValueError(f"cache placed {k.placements}: only batch and sequence may be sharded")
+    plan = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in k.placements]
+    out_pl = [Partial() if c else p for c, p in zip(keys, plan)]
+    if tuple(q.placements) != tuple(plan):
+        q = q.redistribute(mesh, plan)
+    shape, offset = compute_local_shape_and_global_offset(k.shape, mesh, k.placements)
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    kpos = torch.arange(offset[1], offset[1] + shape[1], device=kl.device)
+    softmax = None
+    if any(keys):
+        def across(x, op):  # x reduced by ``op`` over the mesh dims that split the keys
+            part = [Partial(op) if c else p for c, p in zip(keys, plan)]
+            return _wrap(x, mesh, part, (q.shape[0],) + tuple(x.shape[1:])).redistribute(
+                mesh, plan).to_local()
+
+        def softmax(s):
+            m = across(s.amax(dim=-1, keepdim=True), "max")
+            e = torch.exp(s - m)
+            return e / across(e.sum(dim=-1, keepdim=True), "sum")
+    out = decode(ql, kl, vl, kpos, softmax=softmax, **kw)
+    return _wrap(out, mesh, out_pl, tuple(q.shape)).redistribute(mesh, q_pl)

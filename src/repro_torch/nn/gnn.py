@@ -27,6 +27,7 @@ bfloat16 between layers there too.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict
 
@@ -36,9 +37,10 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch import devices
 from repro_torch.configs.base import GNNConfig
-from repro_torch.dist.sharding import LocalRows, LocalSegmentExtreme, local_segment_sum
+from repro_torch.dist.sharding import (LocalRows, LocalSegmentExtreme, local_edge_map,
+                                       local_segment_sum)
 from repro_torch.nn import layers as L
-from repro_torch.train.tree import tree_map
+from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def to_device(params, device: torch.device):
@@ -86,9 +88,9 @@ class _SegmentSum(torch.autograd.Function):
 
 
 def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table.index_select(0, idx)``; on DTensors by
+    """``table.index_select(0, idx)``; on DTensors (either operand) by
     ``dist.sharding.LocalRows``."""
-    if isinstance(table, DTensor):
+    if isinstance(table, DTensor) or isinstance(idx, DTensor):
         return LocalRows.apply(table, idx)
     return table.index_select(0, idx)
 
@@ -309,9 +311,67 @@ def nequip_init(gen: torch.Generator, cfg: GNNConfig, n_species: int = 8):
     return {"embed": embed * 0.5, "layers": layers, "out": _mlp_init(gen, [d, d, 1])}
 
 
+RADIAL = ("r00", "r01", "r11", "r110", "r02", "r22")
+
+
+def _on_edges(fn, ids, rows, shared=None, reduced=False):
+    """``fn(*rows, shared)``: per-edge work over (E, ...) ``rows`` laid out
+    as the edge ids ``ids``, with the weight tree ``shared``. On DTensors (a
+    cell on a mesh) on each device's own edges by
+    ``dist.sharding.local_edge_map`` (``reduced``: ``fn`` returns node
+    tables summed over the edges, partial sums there)."""
+    if not isinstance(ids, DTensor):
+        return fn(*rows, shared)
+    leaves = tree_leaves(shared)
+    return local_edge_map(lambda *a: fn(*a[:len(rows)], tree_unflatten(shared, a[len(rows):])),
+                          ids, rows, leaves, reduced)
+
+
+def _nequip_geometry(cfg: GNNConfig, ci, cj, emask, _):
+    """Per edge: the radial basis, the l=1 and l=2 harmonics of the unit
+    vector and the valid mask (unmasked and inside the cutoff)."""
+    rij = ci - cj
+    r = torch.sqrt(torch.clamp(torch.sum(rij * rij, dim=-1), min=1e-12))
+    u = rij / r[:, None]
+    rbf = _bessel_rbf(r, cfg.n_rbf, cfg.cutoff)          # (E, n_rbf)
+    y2 = _y2(u) if cfg.l_max >= 2 else None               # (E, 5)
+    valid = emask & (r < cfg.cutoff)
+    return rbf, u, y2, valid
+
+
+def _nequip_messages(cfg: GNNConfig, n: int, dst, sj, vj, tj, rbf, y1, y2, valid, radial):
+    """One layer's messages, weighted by the radial nets and summed into
+    their destinations: the (N, d), (N, d, 3) and (N, d, 5) updates."""
+    def seg(x, w):
+        x = torch.where(valid.reshape((-1,) + (1,) * (x.ndim - 1)), x * w, 0.0)
+        return _seg_sum(x, dst, n)
+
+    w00 = _mlp(radial["r00"], rbf)                        # (E, d)
+    w01 = _mlp(radial["r01"], rbf)
+    w11 = _mlp(radial["r11"], rbf)
+    w110 = _mlp(radial["r110"], rbf)
+
+    # l=0 out: 0⊗Y0→0 and 1⊗Y1→0 (dot product path)
+    s_new = seg(sj, w00) + seg(torch.einsum("edk,ek->ed", vj, y1), w110)
+    # l=1 out: 0⊗Y1→1 and 1⊗Y0→1
+    v_new = seg(sj[:, :, None] * y1[:, None, :], w01[:, :, None]) + seg(
+        vj, w11[:, :, None]
+    )
+    t_new = None
+    if cfg.l_max >= 2:
+        w02 = _mlp(radial["r02"], rbf)
+        w22 = _mlp(radial["r22"], rbf)
+        t_new = seg(sj[:, :, None] * y2[:, None, :], w02[:, :, None]) + seg(
+            tj, w22[:, :, None]
+        )
+    return s_new, v_new, t_new
+
+
 def nequip_apply(params, cfg: GNNConfig, batch: Dict):
     """Returns per-node energy (N,). Features: s (N,d), v (N,d,3), t (N,d,5);
-    all channel-major."""
+    all channel-major. The per-edge work (geometry, radial nets, messages
+    and their sums) runs through ``_on_edges``: on a mesh, on each
+    device's own edges."""
     dev = _device_of(params)
     src, dst, emask = _edges(batch, dev)
     coords = _get(batch, "coords", dev)
@@ -319,43 +379,20 @@ def nequip_apply(params, cfg: GNNConfig, batch: Dict):
     n = coords.shape[0]
     d = cfg.d_hidden
 
-    rij = _rows(coords, dst) - _rows(coords, src)
-    r = torch.sqrt(torch.clamp(torch.sum(rij * rij, dim=-1), min=1e-12))
-    u = rij / r[:, None]
-    rbf = _bessel_rbf(r, cfg.n_rbf, cfg.cutoff)          # (E, n_rbf)
-    y1 = u                                                # (E, 3)
-    y2 = _y2(u) if cfg.l_max >= 2 else None               # (E, 5)
-    valid = emask & (r < cfg.cutoff)
+    rbf, y1, y2, valid = _on_edges(functools.partial(_nequip_geometry, cfg), dst,
+                                   (_rows(coords, dst), _rows(coords, src), emask))
 
     s = _rows(params["embed"], species)                   # (N, d)
     v = torch.zeros((n, d, 3), device=dev)
     t = torch.zeros((n, d, 5), device=dev) if cfg.l_max >= 2 else None
 
-    def seg(x, w):
-        x = torch.where(valid.reshape((-1,) + (1,) * (x.ndim - 1)), x * w, 0.0)
-        return _seg_sum(x, dst, n)
-
     for lp in params["layers"]:
         sj = _rows(s, src)                                # (E, d)
         vj = _rows(v, src)                                # (E, d, 3)
-        w00 = _mlp(lp["r00"], rbf)                        # (E, d)
-        w01 = _mlp(lp["r01"], rbf)
-        w11 = _mlp(lp["r11"], rbf)
-        w110 = _mlp(lp["r110"], rbf)
-
-        # l=0 out: 0⊗Y0→0 and 1⊗Y1→0 (dot product path)
-        s_new = seg(sj, w00) + seg(torch.einsum("edk,ek->ed", vj, y1), w110)
-        # l=1 out: 0⊗Y1→1 and 1⊗Y0→1
-        v_new = seg(sj[:, :, None] * y1[:, None, :], w01[:, :, None]) + seg(
-            vj, w11[:, :, None]
-        )
-        if cfg.l_max >= 2:
-            tj = _rows(t, src)
-            w02 = _mlp(lp["r02"], rbf)
-            w22 = _mlp(lp["r22"], rbf)
-            t_new = seg(sj[:, :, None] * y2[:, None, :], w02[:, :, None]) + seg(
-                tj, w22[:, :, None]
-            )
+        tj = _rows(t, src) if cfg.l_max >= 2 else None
+        s_new, v_new, t_new = _on_edges(
+            functools.partial(_nequip_messages, cfg, n), dst,
+            (dst, sj, vj, tj, rbf, y1, y2, valid), {k: lp[k] for k in RADIAL}, reduced=True)
         # self-interaction (channel mixing) + gated nonlinearity; self0 and
         # gate take dense's bfloat16 default, as in the JAX package
         s_mix = L.dense(lp["self0"], s + s_new)

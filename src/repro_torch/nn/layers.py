@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.dist.sharding import constrain, local_attention, unflatten
+from repro_torch.dist.sharding import constrain, local_attention, local_decode
 
 
 def normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
@@ -117,6 +117,25 @@ def _chunks(n: int, chunk: int, what: str) -> tuple[int, int]:
     return count, size
 
 
+def _decode(q, k, v, kpos, causal: bool, q_offset: int, kv_len: Optional[int],
+            softmax=None) -> torch.Tensor:
+    """Decode attention (``Sq == 1``) against keys at positions ``kpos``:
+    grouped products over the whole cache (KV is not repeated to H
+    heads), the masks as ``-inf``, a float32 softmax over the keys
+    (``softmax``, default ``torch.softmax`` over the last dim)."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.unflatten(2, (kvh, h // kvh))
+    s = torch.einsum("bqngd,bknd->bngqk", qg, k).to(torch.float32) * float(1.0 / np.sqrt(hd))
+    if kv_len is not None:
+        s = s.masked_fill(kpos >= kv_len, -torch.inf)
+    if causal:
+        s = s.masked_fill(kpos > q_offset, -torch.inf)
+    p = torch.softmax(s, dim=-1) if softmax is None else softmax(s)
+    out = torch.einsum("bngqk,bknd->bqngd", p.to(q.dtype), v)
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
 def attention(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Sk, KV, hd)
@@ -150,16 +169,14 @@ def attention(
     dev = q.device
 
     if sq == 1:
-        qg = unflatten(q, 2, (kvh, groups))
-        s = torch.einsum("bqngd,bknd->bngqk", qg, k).to(torch.float32) * scale
-        kpos = torch.arange(sk, device=dev)
-        if kv_len is not None:
-            s = s.masked_fill(kpos >= kv_len, -torch.inf)
-        if causal:
-            s = s.masked_fill(kpos > q_offset, -torch.inf)
-        p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bngqk,bknd->bqngd", p.to(q.dtype), v)
-        return out.reshape(b, sq, h, hd).to(q.dtype)
+        if isinstance(q, DTensor):
+            # on a mesh each device attends its rows against its block of
+            # the cache, the softmax taken across the devices that split the
+            # keys (dist.sharding.local_decode)
+            return local_decode(_decode, q, k, v, causal=causal, q_offset=q_offset,
+                                kv_len=kv_len)
+        return _decode(q, k, v, torch.arange(sk, device=dev), causal=causal, q_offset=q_offset,
+                       kv_len=kv_len)
 
     if isinstance(q, DTensor):
         # on a mesh each device attends its own batch rows and heads, the

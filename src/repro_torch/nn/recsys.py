@@ -33,9 +33,11 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import devices
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.dist.sharding import LocalTake
 from repro_torch.kernels.embedding_bag.ref import lookup_ref
 from repro_torch.nn import layers as L
 
@@ -87,6 +89,14 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x).to(device)
 
 
+def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``lookup_ref(table, ids)``; a DTensor table (the row-sharded table of
+    a cell on a mesh) by ``dist.sharding.LocalTake``."""
+    if isinstance(table, DTensor):
+        return LocalTake.apply(table, ids)
+    return lookup_ref(table, ids)
+
+
 def table_lookup(params: Dict, ids: torch.Tensor) -> torch.Tensor:
     """GRASP-classified lookup: ``ids.shape + (d,)`` rows.
 
@@ -101,7 +111,7 @@ def table_lookup(params: Dict, ids: torch.Tensor) -> torch.Tensor:
     step over sharded ids (a cell on a mesh) traces as it runs.
     """
     if "items_hot" not in params:
-        return lookup_ref(params["items"], ids)
+        return _take(params["items"], ids)
     h, d = params["items_hot"].shape
     shape = tuple(ids.shape)
     flat = ids.reshape(-1)

@@ -35,7 +35,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import devices
 from repro_torch.configs.base import LMConfig
-from repro_torch.dist.sharding import constrain, gather_fsdp, stack, unflatten, write_at
+from repro_torch.dist.sharding import (constrain, flatten, gather_fsdp, stack, unflatten,
+                                       write_at)
 from repro_torch.nn import layers as L
 from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -328,7 +329,7 @@ def decode_step(params, cfg: LMConfig, cache: KVCache, token: torch.Tensor):
         write_at(cache.k, (i, slice(None), pos), k[:, 0])
         write_at(cache.v, (i, slice(None), pos), v[:, 0])
         out = L.attention(q, cache.k[i], cache.v[i], causal=False, kv_len=pos + 1)
-        out = L.tp(out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
+        out = L.tp(flatten(out, 2, 3))  # (B, 1, H * hd); heads sharded, hd whole
         x = _constrain_seq(cfg, x + L.dense(lp["attn"]["wo"], out))
         out, _ = _ffn_block(cfg, lp, _norm(cfg, lp["ln2"], x), None)
         x = _constrain_seq(cfg, x + out)

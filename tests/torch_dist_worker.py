@@ -143,6 +143,37 @@ def lm_cell_steps(rank, world, out_dir, cfg, shape, mesh_shape, params, batches)
                                            "grads": grads})
 
 
+def recsys_cell_steps(rank, world, out_dir, cfg, shape, mesh_shape, params, batches):
+    """The MIND train cell (``launch.steps._recsys_cell``: the item table
+    sharded on its rows over every mesh axis, the batch over "data") on a
+    ``mesh_shape`` debug mesh of this group, from ``params`` and AdamW's
+    zeros: one step a batch. Each step's loss, the whole gradients each
+    step handed its optimizer, the whole parameters after the last step
+    and the table's placements."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train.tree import tree_map
+
+    torch.set_num_threads(1)
+    with gloo_group(os.path.join(out_dir, "store_dir"), rank, world):
+        mesh = make_debug_mesh(*mesh_shape, device_type="cpu")
+        with recording_grads() as grads:
+            cell = steps._recsys_cell(cfg, shape, mesh)
+        # a copy: spawned ranks share the caller's tensors, and the step
+        # updates replicated leaves in place
+        params = tree_map(torch.clone, params)
+        p = shd.place(params, cell.in_shardings[0])
+        s = shd.place(steps._adamw()[0](params), cell.in_shardings[1])
+        losses = []
+        for b in batches:
+            p, s, m = cell.step_fn(p, s, shd.place(b, cell.in_shardings[2]))
+            losses.append(m["loss"].full_tensor())
+        out = {"losses": losses, "grads": grads, "placements": repr(p["items"].placements),
+               "params": tree_map(lambda x: x.full_tensor(), p)}
+    _save(out_dir, "recsys_cell_steps", rank, out)
+
+
 def tree_leaves_of(tree):
     from repro_torch.train.tree import tree_leaves
 
@@ -223,13 +254,15 @@ def lm_serving_cells(rank, world, out_dir, cfg, batch, seq, length, mesh_shape, 
     _save(out_dir, "lm_serving_cells", rank, out)
 
 
-def local_rule_grads(rank, world, out_dir, table, x, ids, weights, mesh_shape):
+def local_rule_grads(rank, world, out_dir, table, x, ids, weights, mesh_shape, more):
     """``dist.sharding``'s local rules on a ``mesh_shape`` debug mesh, with
     the (E,) ids sharded on their rows over every mesh axis, as a GNN
     cell's edges: ``nn.gnn``'s row gather of the replicated (n, d)
     ``table`` by ``ids``, and its segment sum, max and min of the (E, d)
     rows ``x`` (placed as the ids) into n segments. For each, the whole
-    output and the whole gradient of ``(out * weights[name]).sum()``."""
+    output and the whole gradient of ``(out * weights[name]).sum()``.
+    Then each case ``name: (kind, arguments)`` of ``more``, run by
+    ``local_rule_cases[kind]``: the outputs and gradients it returns."""
     from repro_torch.dist import sharding as shd
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.nn import gnn
@@ -252,7 +285,65 @@ def local_rule_grads(rank, world, out_dir, table, x, ids, weights, mesh_shape):
                 got = shd.redistribute(rule(arg, shd.place(ids, edges)), shd.ns(mesh))
                 (got * shd.place(weights[name], shd.ns(mesh))).sum().backward()
                 out[name] = (got.full_tensor().detach(), arg.grad.full_tensor())
+            for name, (kind, case) in more.items():
+                out[name] = local_rule_cases[kind](mesh, **case)
     _save(out_dir, "local_rule_grads", rank, out)
+
+
+def _take_case(mesh, table, ids, weight):
+    """``nn.recsys._take`` (``LocalTake``): the (V, d) table sharded on its
+    rows over every mesh axis, the ids on their rows over "data"; the
+    output and the table's gradient of ``(out * weight).sum()``."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.nn import recsys
+
+    t = shd.place(table.clone(), shd.ns(mesh, tuple(mesh.mesh_dim_names), None))
+    t.requires_grad_(True)
+    got = recsys._take(t, shd.place(ids, shd.ns(mesh, "data", None)))
+    placements = repr(got.placements)
+    got = shd.redistribute(got, shd.ns(mesh))
+    (got * shd.place(weight, shd.ns(mesh))).sum().backward()
+    return got.full_tensor().detach(), t.grad.full_tensor(), placements, repr(t.grad.placements)
+
+
+def _edge_case(mesh, fn, ids, rows, weights, reduced, cotangents):
+    """``nn.gnn._on_edges(fn, ...)`` over ``ids`` sharded on their rows over
+    every mesh axis, the (E, ...) ``rows`` placed as the ids and the weight
+    tree replicated; the whole outputs and the whole gradients of
+    ``sum(out * cotangent)`` (a None cotangent: that output left out) for
+    the rows and the weights, and the outputs' placements."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.nn import gnn
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    edges = shd.ns(mesh, tuple(mesh.mesh_dim_names))
+    placed = [shd.place(r.clone(), edges).requires_grad_(r.is_floating_point()) for r in rows]
+    w = tree_map(lambda t: shd.place(t.clone(), shd.ns(mesh)).requires_grad_(True), weights)
+    outs = gnn._on_edges(fn, shd.place(ids, edges), placed, w, reduced=reduced)
+    whole = [shd.redistribute(o, shd.ns(mesh)) for o in outs]
+    sum((o * shd.place(c, shd.ns(mesh))).sum() for o, c in zip(whole, cotangents)
+        if c is not None).backward()
+    return ([o.full_tensor().detach() for o in whole],
+            [r.grad.full_tensor() if r.grad is not None else None for r in placed],
+            [x.grad.full_tensor() for x in tree_leaves(w)], [repr(o.placements) for o in outs])
+
+
+def _decode_case(mesh, q, k, v, kv_len):
+    """``nn.layers.attention`` of one query a row: q sharded on its batch
+    over "data" and its heads over "model", the (B, S, KV, hd) cache on
+    its batch over "data" and its sequence over "model"; the whole
+    output."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.nn import layers
+
+    cache = shd.ns(mesh, "data", "model", None, None)
+    out = layers.attention(shd.place(q, shd.ns(mesh, "data", None, "model", None)),
+                           shd.place(k, cache), shd.place(v, cache), causal=False,
+                           kv_len=kv_len)
+    return out.full_tensor(), repr(out.placements)
+
+
+local_rule_cases = {"take": _take_case, "edge_map": _edge_case, "decode": _decode_case}
 
 
 def lm_trainer_fits(rank, world, out_dir, cfg, shape, mesh_shape, params, steps, ckpt_dir):

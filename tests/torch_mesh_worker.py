@@ -20,11 +20,14 @@ port (no jax, no repro). Jobs:
 - ``dryrun``: ``launch.dryrun.run_cell`` on the single mesh for the LM
   config ``{"arch", "replace"}`` (the arch's published config with the
   ``replace`` fields changed) at ``{"shape"}`` (an ``LMShape``'s fields),
-  registered as the arch ``"<arch>-test"`` and shape ``"test"``.
+  registered as the arch ``"<arch>-test"`` and shape ``"test"``; or, given
+  a list of ``{"cell": "arch:shape", "mesh", "guard"}``, ``run_cell`` on
+  each published cell under ``DTensorGuard(guard)``: a record each.
 """
 import dataclasses
 import json
 import logging
+import math
 import os
 import sys
 
@@ -32,8 +35,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
-from torch.distributed.tensor import DTensor, Replicate  # noqa: E402
+from torch.distributed.tensor import DTensor, Replicate, Shard  # noqa: E402
 from torch.testing._internal.distributed.fake_pg import FakeStore  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+from torch.utils._pytree import tree_leaves  # noqa: E402
 
 from repro_torch.dist import sharding as shd  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -107,10 +112,87 @@ def cells(meshes, _):
     return out
 
 
+VIEWS = ("aten.view", "aten._unsafe_view")
+
+
+def merges_a_sharded_dim(x, shape) -> bool:
+    """Whether viewing DTensor ``x`` as ``shape`` merges a dim that ``x``
+    shards into the dim before it (the flatten that some torch releases'
+    view rule refuses: only a merged group's leading dim, dims of one
+    aside, may be sharded)."""
+    shape = list(shape)
+    if -1 in shape:
+        rest = math.prod(s for s in shape if s != -1)
+        shape[shape.index(-1)] = x.numel() // rest if rest else 0
+    sharded = {p.dim for p in x.placements if isinstance(p, Shard)}
+    xs, i, j = list(x.shape), 0, 0
+    while i < len(xs) and j < len(shape):
+        group, pa, pb = [i], xs[i], shape[j]
+        while pa != pb:
+            if pa < pb and i + 1 < len(xs):
+                i += 1
+                group.append(i)
+                pa *= xs[i]
+            elif pb < pa and j + 1 < len(shape):
+                j += 1
+                pb *= shape[j]
+            else:
+                return False
+        merged = [d for d in group if xs[d] > 1]  # a dim of one merges into nothing
+        if any(d in sharded for d in merged[1:]):
+            return True
+        i, j = i + 1, j + 1
+    return False
+
+
+class DTensorGuard(TorchDispatchMode):
+    """Raises when one of ``ops`` (``"aten.index_add"``, ...) receives a
+    DTensor: the operations whose DTensor rules a torch release refuses in
+    the cells that the port's local rules carry. ``aten.view`` and
+    ``aten._unsafe_view`` raise only when they merge a sharded dim into
+    the one before it."""
+
+    def __init__(self, ops):
+        super().__init__()
+        self.ops = set(ops)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = f"{func.namespace}.{func.overloadpacket.__name__}"
+        if name in self.ops and any(issubclass(t, DTensor) for t in types) and (
+                name not in VIEWS or merges_a_sharded_dim(args[0], args[1])):
+            placed = [(tuple(a.shape), a.placements) for a in tree_leaves(args)
+                      if isinstance(a, DTensor)]
+            raise RuntimeError(f"guarded: {func} received a DTensor {placed}")
+        return func(*args, **(kwargs or {}))  # on to the modes below (the dry-run's counts)
+
+
 def dryrun(meshes, arg):
     from repro_torch.configs import base as cfgs
     from repro_torch.launch import dryrun as dr
 
+    if isinstance(arg, list):
+        out = []
+        build, lm_cell = steps.build_cell, steps.lm_cell
+        for case in arg:
+            arch, shape = case["cell"].split(":")
+
+            def guarded(make, ops=case["guard"]):
+                # the guard innermost, inside the dry-run's own modes: a mode
+                # above one that leaves DTensors to DTensor never sees them
+                def cell(*a, **k):
+                    c = make(*a, **k)
+
+                    def step(*args, fn=c.step_fn):
+                        with DTensorGuard(ops):
+                            return fn(*args)
+                    return dataclasses.replace(c, step_fn=step)
+                return cell
+            steps.build_cell, steps.lm_cell = guarded(build), guarded(lm_cell)
+            try:
+                out.append(dr.run_cell(arch, shape, meshes[case["mesh"]], case["mesh"]))
+            finally:
+                steps.build_cell, steps.lm_cell = build, lm_cell
+        return out
     cfg = dataclasses.replace(cfgs.get_arch(arg["arch"]), name=arg["arch"] + "-test",
                               **arg["replace"])
     cfgs.register(cfg)
