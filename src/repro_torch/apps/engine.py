@@ -8,6 +8,11 @@ into.
 
 Direction switching (Ligra's push/pull heuristic) selects pull when the
 active frontier covers more than ``switch_fraction`` of edges.
+
+Under torch.profiler each edge map opens two spans (``repro_torch.spans``):
+``engine.gather`` around producing the messages and ``engine.reduce``
+around their reduction, so a kernel is put down to the layer that launched
+it whatever its name.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.graph.csr import DeviceCSR
 from repro_torch.kernels.hot_gather import ops as hot_ops
 
@@ -87,14 +93,16 @@ def edge_map_pull(
     ``identity``). Messages into inactive vertices are replaced by the
     identity before the reduction, matching Ligra's edgeMap semantics.
     """
-    msgs = gather_src(g, prop, gather_impl)
-    if edge_fn is not None:
-        msgs = edge_fn(msgs, g)
-    if active_dst is not None:
-        mask = active_dst[g.dst]
-        shape = (-1,) + (1,) * (msgs.dim() - 1)
-        msgs = torch.where(mask.reshape(shape), msgs, identity)
-    return reduce_fn(msgs, g.dst, g.num_nodes)
+    with spans.span("engine.gather"):
+        msgs = gather_src(g, prop, gather_impl)
+        if edge_fn is not None:
+            msgs = edge_fn(msgs, g)
+        if active_dst is not None:
+            mask = active_dst[g.dst]
+            shape = (-1,) + (1,) * (msgs.dim() - 1)
+            msgs = torch.where(mask.reshape(shape), msgs, identity)
+    with spans.span("engine.reduce"):
+        return reduce_fn(msgs, g.dst, g.num_nodes)
 
 
 def edge_map_push(
@@ -109,14 +117,16 @@ def edge_map_push(
     for an out-CSR, ``indices`` = destination of each out-edge and ``dst`` =
     the pushing source. Messages flow source -> destination. The source
     gather is a plain ``index_select``, as in the JAX package."""
-    msgs = prop.index_select(0, g.dst)
-    if edge_fn is not None:
-        msgs = edge_fn(msgs, g)
-    if active_src is not None:
-        mask = active_src[g.dst]
-        shape = (-1,) + (1,) * (msgs.dim() - 1)
-        msgs = torch.where(mask.reshape(shape), msgs, identity)
-    return reduce_fn(msgs, g.indices, g.num_nodes)
+    with spans.span("engine.gather"):
+        msgs = prop.index_select(0, g.dst)
+        if edge_fn is not None:
+            msgs = edge_fn(msgs, g)
+        if active_src is not None:
+            mask = active_src[g.dst]
+            shape = (-1,) + (1,) * (msgs.dim() - 1)
+            msgs = torch.where(mask.reshape(shape), msgs, identity)
+    with spans.span("engine.reduce"):
+        return reduce_fn(msgs, g.indices, g.num_nodes)
 
 
 @dataclasses.dataclass(frozen=True)

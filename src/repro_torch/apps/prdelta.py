@@ -11,6 +11,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.apps.engine import edge_map_pull, sum_reduce
 from repro_torch.graph.csr import DeviceCSR
 
@@ -29,7 +30,9 @@ def pagerank_delta(
     A host loop runs while ``active.any() & (it < max_iters)``, the
     condition of the JAX package's ``while_loop``; reading the flag each
     iteration synchronises with the device. ``stats``, when given,
-    receives ``iters``, the number of iterations run.
+    receives ``iters``, the number of iterations run. Under torch.profiler
+    the flag read is an ``apps.flag`` span and each iteration an
+    ``apps.iter`` one (``repro_torch.spans``).
     """
     n = g.num_nodes
     dev = g.indices.device
@@ -45,12 +48,16 @@ def pagerank_delta(
     delta = rank
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     it = 0
-    while it < max_iters and bool(active.any()):
-        contrib = torch.where(active, delta, 0.0) / safe_deg
-        incoming = edge_map_pull(g, contrib, reduce_fn=sum_reduce, gather_impl=gather_impl)
-        delta = damping32 * incoming
-        rank = rank + delta
-        active = delta.abs() > epsilon32 * rank.abs()
+    while it < max_iters:
+        with spans.span("apps.flag"):
+            if not bool(active.any()):
+                break
+        with spans.span("apps.iter"):
+            contrib = torch.where(active, delta, 0.0) / safe_deg
+            incoming = edge_map_pull(g, contrib, reduce_fn=sum_reduce, gather_impl=gather_impl)
+            delta = damping32 * incoming
+            rank = rank + delta
+            active = delta.abs() > epsilon32 * rank.abs()
         it += 1
     if stats is not None:
         stats["iters"] = it

@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.apps.engine import min_reduce
 from repro_torch.graph.csr import DeviceCSR
 
@@ -28,7 +29,10 @@ def sssp(
     A host loop runs while ``active.any() & (it < max_iters)``, one read of
     the flag an iteration. The minimum has no order and ``dist + w`` is the
     same float32 add, so the distances equal the JAX package's bit for bit.
-    ``stats``, when given, receives ``iters``.
+    ``stats``, when given, receives ``iters``. Under torch.profiler the
+    flag read is an ``apps.flag`` span, each iteration an ``apps.iter``
+    one, and its relaxation ``engine.gather`` then ``engine.reduce``, as in
+    ``engine``'s edge maps (``repro_torch.spans``).
     """
     n = g_out.num_nodes
     dev = g_out.indices.device
@@ -42,11 +46,17 @@ def sssp(
     active = torch.zeros((n,), dtype=torch.bool, device=dev)
     active[source] = True
     it = 0
-    while it < max_iters and bool(active.any()):
-        cand = torch.where(active[src_of_edge], dist[src_of_edge] + w, float("inf"))
-        best = min_reduce(cand, dst_of_edge, n)
-        active = best < dist
-        dist = torch.minimum(dist, best)
+    while it < max_iters:
+        with spans.span("apps.flag"):
+            if not bool(active.any()):
+                break
+        with spans.span("apps.iter"):
+            with spans.span("engine.gather"):
+                cand = torch.where(active[src_of_edge], dist[src_of_edge] + w, float("inf"))
+            with spans.span("engine.reduce"):
+                best = min_reduce(cand, dst_of_edge, n)
+            active = best < dist
+            dist = torch.minimum(dist, best)
         it += 1
     if stats is not None:
         stats["iters"] = it
