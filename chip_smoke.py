@@ -51,11 +51,16 @@ Phases, each of which must pass:
      the quickstart's PR trace: the hit accounting holds and OPT misses
      least (no other order is asserted); (c) at real size (the ``lj``
      graph of phase 5): PRD through K1 against the plain gather (rel
-     1e-4, K1 once per iteration), SSSP from 0 (no edge relaxes further),
-     BC from 0 (its levels are the hop distances of a unit-weight SSSP
-     within 64 hops, sigma >= 1 where reached) and Radii from roots 0..7
-     (bit 0 set exactly where BC reached, radii >= level), each with its
-     wall ms, iterations and peak device memory;
+     1e-4, K1 once per iteration), SSSP from 0 (no edge relaxes further,
+     the segment-min kernel once per iteration, its count of live
+     messages the candidates not +inf), BC from 0 (its levels are the hop
+     distances of a unit-weight SSSP within 64 hops, sigma >= 1 where
+     reached) and Radii from roots 0..7 (bit 0 set exactly where BC
+     reached, radii >= level), each with its wall ms, iterations and peak
+     device memory; then SSSP from 0's iterations replayed, each
+     iteration's candidates reduced by the segment-min kernel and held bit
+     for bit against its plain version, and timed beside it and beside
+     scatter_reduce_ amin over int64 targets widened once;
  10. GIN (gin-tu at full width) served through the GRASP feature cache
      (GNNServeEngine) over the ``lj`` graph of phase 5, the JAX package's
      stand-in for ogb_products, with 100-wide seeded features: 8,192
@@ -1461,9 +1466,10 @@ def run_policies(qs_graph) -> None:
         fail(f"policies: {worse} miss less than OPT ({res['opt'].misses})")
 
 
-def run_real_suite(dev, g2) -> int:
+def run_real_suite(dev, g2) -> tuple[int, dict]:
     """Phase 9 (c): PRD, SSSP, BC and Radii at real size on ``g2`` (the
-    ``lj`` graph of phase 5). Returns K1's launches in one PRD run through K1."""
+    ``lj`` graph of phase 5). Returns K1's launches in one PRD run through
+    K1, and the segment-min kernel's numbers on SSSP from 0."""
     import statistics
 
     import torch
@@ -1472,6 +1478,7 @@ def run_real_suite(dev, g2) -> int:
     from repro_torch.graph.csr import transpose
     from repro_torch.graph.generate import add_uniform_weights
     from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+    from repro_torch.kernels.segment_min.segment_min import segment_min
 
     t0 = time.perf_counter()
     out_csr = transpose(add_uniform_weights(g2, seed=1))
@@ -1483,28 +1490,39 @@ def run_real_suite(dev, g2) -> int:
     d_out = out_csr.device(dev)
     d_hops = dataclasses.replace(d_out, weights=None)  # the same edges, unit weights
 
-    def run(label, fn):
+    def run(label, fn, sssp=False):
+        """One app run; SSSP's must launch the segment-min kernel once an
+        iteration and count its live messages, the others never launch it."""
         stats = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        hot_gather_hot_part.launches = 0
+        hot_gather_hot_part.launches = segment_min.launches = 0
         t0 = time.perf_counter()
         res = fn(stats)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        sm_launches = segment_min.launches
         peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        live = f", live messages {stats['live_messages']}" if sssp else ""
         print(f"real-size {label}: {ms:.3f} ms, {stats['iters']} iterations "
               f"({ms / max(stats['iters'], 1):.4f} ms each), peak device memory of the graphs "
-              f"and the app {peak:.3f} GiB, K1 launches {hot_gather_hot_part.launches}")
-        return res, stats["iters"], hot_gather_hot_part.launches, ms
+              f"and the app {peak:.3f} GiB, K1 launches {hot_gather_hot_part.launches}, "
+              f"segment-min launches {sm_launches}{live}")
+        if sm_launches != (stats["iters"] if sssp else 0):
+            fail(f"real-size {label}: {sm_launches} segment-min launches for "
+                 f"{stats['iters']} iterations")
+        if sssp and not isinstance(stats["live_messages"], int):
+            fail(f"real-size {label}: live messages {stats['live_messages']!r}")
+        return res, stats, hot_gather_hot_part.launches, ms
 
     # PageRank-Delta through K1 against the plain gather, in turns
     for impl in ("hot", "plain"):  # warm-up of both routes
         apps.pagerank_delta(dg, max_iters=1, gather_impl=impl)
     ranks, prd_launches, prd_ms = {}, set(), {"hot": [], "plain": []}
     for impl in PRD_TURNS:
-        ranks[impl], it, launches, ms = run(
+        ranks[impl], st, launches, ms = run(
             f"PRD, {impl} gather", lambda st: apps.pagerank_delta(dg, gather_impl=impl, stats=st))
+        it = st["iters"]
         prd_ms[impl].append(ms / it)
         if impl == "hot" and launches != it:
             fail(f"real-size PRD: {launches} K1 launches for {it} iterations")
@@ -1523,7 +1541,7 @@ def run_real_suite(dev, g2) -> int:
     print(f"real-size PRD: K1 vs plain gather max rel diff {rel:.3e}, ranks finite")
 
     # SSSP from 0: no edge relaxes any further
-    dist = run("SSSP from 0", lambda st: apps.sssp(d_out, 0, stats=st))[0]
+    dist, sssp_stats = run("SSSP from 0", lambda st: apps.sssp(d_out, 0, stats=st), sssp=True)[:2]
     src, dst = d_out.dst.long(), d_out.indices.long()
     d_src = dist[src]
     relaxes = int((torch.isfinite(d_src) & (dist[dst] > d_src + d_out.weights)).sum())
@@ -1534,7 +1552,8 @@ def run_real_suite(dev, g2) -> int:
         fail(f"real-size SSSP: dist[0] = {float(dist[0])}, {relaxes} edges relax further")
 
     # BC from 0: levels are the hop distances within 64 hops
-    hops = run("SSSP from 0, unit weights", lambda st: apps.sssp(d_hops, 0, stats=st))[0]
+    hops = run("SSSP from 0, unit weights", lambda st: apps.sssp(d_hops, 0, stats=st),
+               sssp=True)[0]
     _, sigma, level = run("BC from 0", lambda st: apps.bc_single_source(d_hops, 0, stats=st))[0]
     want = torch.where(hops <= 64, hops, torch.full_like(hops, -1.0)).to(torch.int32)
     reached_bc = level >= 0
@@ -1558,7 +1577,83 @@ def run_real_suite(dev, g2) -> int:
         fail("real-size Radii: a radius below its BFS level")
     if len(prd_launches) != 1:
         fail(f"real-size PRD: K1 launches differ between runs: {prd_launches}")
-    return prd_launches.pop()
+    del src, dst, hops, sigma, level, radii, mask
+    sm = segment_min_numbers(d_out, 0, dist, sssp_stats)
+    return prd_launches.pop(), sm
+
+
+def segment_min_numbers(g_out, source: int, dist, stats: dict) -> dict:
+    """Replay ``apps.sssp(g_out, source)``'s iterations: reduce each
+    iteration's candidates with the segment-min wrapper over the int32
+    targets, as the app does, and hold it bit for bit against
+    ``ref.segment_min_ref`` and its count of live messages against the
+    candidates not +inf. Times, per launch and as the mean over the
+    iterations: the wrapper (``ms``, ``device_ms``, ``host_us``), the
+    plain version (``plain_ms``), and ``scatter_reduce_`` amin over int64
+    targets widened once, what the port ran before (``library_ms``,
+    ``library_device_ms``); the bound reads each message once, a live
+    message's int32 target and ``out`` once (4 E + 4 live + 4 N bytes).
+    The replay must end where the app's run did (``dist``, ``stats``)."""
+    import torch
+
+    from repro_torch.kernels.segment_min import ref
+    from repro_torch.kernels.segment_min.segment_min import live_counter, segment_min
+
+    n, e = g_out.num_nodes, g_out.indices.shape[0]
+    src_of_edge, tgt, tgt64 = g_out.dst.long(), g_out.indices, g_out.indices.long()
+    counter = live_counter(tgt.device)
+
+    def library(c):
+        out = torch.full((n,), float("inf"), device=c.device)
+        return out.scatter_reduce_(0, tgt64, c, "amin", include_self=True)
+
+    keys = ["ms", "device_ms", "host_us", "plain_ms", "library_ms", "library_device_ms"]
+    parts = {key: [] for key in keys}
+    best_dist = torch.full((n,), float("inf"), device=tgt.device)
+    best_dist[source] = 0.0
+    active = torch.zeros(n, dtype=torch.bool, device=tgt.device)
+    active[source] = True
+    iters = live = 0
+    while bool(active.any()):
+        cand = torch.where(active[src_of_edge], best_dist[src_of_edge] + g_out.weights,
+                           float("inf"))
+        want_live = int((cand != float("inf")).sum())
+        before = counter.clone()
+        best = segment_min(cand, tgt, n)
+        got_live = int(counter - before)
+        if not torch.equal(best.view(torch.int32), ref.segment_min_ref(cand, tgt, n).view(
+                torch.int32)):
+            fail(f"segment-min on real-size SSSP, iteration {iters}: differs from its plain "
+                 f"version")
+        if got_live != want_live:
+            fail(f"segment-min on real-size SSSP, iteration {iters}: counted {got_live} live "
+                 f"messages, {want_live} not +inf")
+        for key, v in timed("", lambda: segment_min(cand, tgt, n)).items():
+            parts[key].append(v)
+        parts["plain_ms"].append(time_ms(lambda: ref.segment_min_ref(cand, tgt, n)))
+        parts["library_ms"].append(time_ms(lambda: library(cand)))
+        parts["library_device_ms"].append(device_ms(lambda: library(cand)))
+        live += want_live
+        active = best < best_dist
+        best_dist = torch.minimum(best_dist, best)
+        iters += 1
+        del cand, best
+    if iters != stats["iters"] or live != stats["live_messages"] or not torch.equal(
+            best_dist.view(torch.int32), dist.view(torch.int32)):
+        fail(f"segment-min replay of real-size SSSP: {iters} iterations, {live} live messages "
+             f"against the app's {stats['iters']}, {stats['live_messages']}, distances equal "
+             f"{torch.equal(best_dist.view(torch.int32), dist.view(torch.int32))}")
+    res = {key: None if None in vals else sum(vals) / iters for key, vals in parts.items()}
+    res["bound_ms"], res["bound_by"] = bound((4 * e * iters + 4 * live + 4 * n * iters) / iters)
+    res.update(max_abs_err=0.0, launches=iters, live_share=live / (e * iters),
+               shape=f"{iters} x (E={e} float32 messages, int32 targets) into N={n}")
+    print(f"segment-min timing on real-size SSSP ({res['shape']}, {res['live_share']:.4f} of "
+          f"messages live), per launch: {res['ms']:.4f} ms (device {fmt_ms(res['device_ms'])}, "
+          f"host {res['host_us']:.2f} us/call), plain {res['plain_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms; scatter_reduce_ amin over int64 targets "
+          f"{res['library_ms']:.4f} ms (device {fmt_ms(res['library_device_ms'])}); every "
+          f"iteration bit for bit, its live count exact")
+    return res
 
 
 class TrainProbe:
@@ -2800,12 +2895,14 @@ def run_gateway(dev, params) -> dict:
 # phase 14: LM serving (nn.transformer, LMServeEngine, lm_loop, --engine lm)
 # ---------------------------------------------------------------------------
 def kernel_counters() -> tuple:
-    """K1's, K2's and K3's wrappers: each counts its launches on the card."""
+    """K1's, K2's, K3's and the segment-min kernel's wrappers: each counts
+    its launches on the card."""
     from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
     from repro_torch.kernels.hot_gather.hot_gather import (hot_gather_hot_part,
                                                            hot_gather_segment_sum)
+    from repro_torch.kernels.segment_min.segment_min import segment_min
 
-    return hot_gather_hot_part, hot_gather_segment_sum, hot_bag_hot_part
+    return hot_gather_hot_part, hot_gather_segment_sum, hot_bag_hot_part, segment_min
 
 
 def lm_close(label: str, got, want, tol: dict) -> float:
@@ -4080,7 +4177,7 @@ def main(argv=None) -> int:
     cache_mix, cache_counts, cache_err = phase("8 (MIND stream)", run_mind_stream, dev, params)
     phase("9a (graph suite)", run_graph_suite, dev)
     phase("9b (policies)", run_policies, qs_graph)
-    prd_launches = phase("9c (real-size suite)", run_real_suite, dev, real_graph)
+    prd_launches, sm = phase("9c (real-size suite)", run_real_suite, dev, real_graph)
     gnn_mix, gnn_counts, gnn_err = phase("10 (GNN serving)", run_gnn_serving, dev, real_graph)
 
     # the quickstart launches K1 once per PageRank iteration, then once in step 5
@@ -4118,6 +4215,9 @@ def main(argv=None) -> int:
         dict(name="hot_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
              replaces="src/repro/kernels/embedding_bag/embedding_bag.py:20",
              path="mind bag (serve_bulk)", **k3),
+        dict(name="segment_min", route="cuda", source="src/repro_torch/csrc/segment_min.cu",
+             replaces="none: the JAX package's segment_min is XLA's jax.ops.segment_min",
+             path="real-size sssp", **sm),
     ]
     # the gateway after the other paths' kernel timing: its busy share is
     # read under torch.profiler, as training's is

@@ -9,6 +9,13 @@ into.
 Direction switching (Ligra's push/pull heuristic) selects pull when the
 active frontier covers more than ``switch_fraction`` of edges.
 
+Reductions: ``sum_reduce`` is ``index_add_``. ``min_reduce`` of (E,) float32
+messages with int32 or int64 ids is the hand-written segment-min kernel on
+the card (``kernels/segment_min``; its plain version on the CPU); its other
+inputs, ``max_reduce`` and ``or_reduce`` are ``scatter_reduce_``. A minimum
+has no order, so either way it keeps the reference's bits. The kernel path
+counts the messages it reduces that are not +inf (``live_messages``).
+
 Under torch.profiler each edge map opens two spans (``repro_torch.spans``):
 ``engine.gather`` around producing the messages and ``engine.reduce``
 around their reduction, so a kernel is put down to the layer that launched
@@ -24,8 +31,11 @@ import torch
 from repro_torch import spans
 from repro_torch.graph.csr import DeviceCSR
 from repro_torch.kernels.hot_gather import ops as hot_ops
+from repro_torch.kernels.segment_min.segment_min import IDS, live_counter, segment_min
 
 Reducer = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
+
+_counted = 0  # min_reduce calls that took the segment-min kernel, on any device
 
 
 def sum_reduce(data, seg, n):
@@ -47,8 +57,28 @@ def _extreme(dtype: torch.dtype, high: bool):
 
 
 def min_reduce(data, seg, n):
-    # empty segments: +inf (floats) or the dtype's max, as jax.ops.segment_min
+    # empty segments: +inf (floats) or the dtype's max, as jax.ops.segment_min;
+    # (E,) float32 messages go to the segment-min kernel, which skips the +inf
+    # ones, counts the others and reads the ids as they are
+    if data.dtype == torch.float32 and data.dim() == 1 and seg.dtype in IDS:
+        global _counted
+        _counted += 1
+        return segment_min(data, seg, n)
     return _scatter_reduce(data, seg, n, "amin", _extreme(data.dtype, high=True))
+
+
+def live_messages(device) -> tuple[int, torch.Tensor]:
+    """A mark of ``min_reduce``'s count of live messages (those not +inf):
+    the calls so far that took the segment-min kernel and counted theirs,
+    on any device, and a copy of ``device``'s running count, an int64
+    made on its stream without waiting.
+
+    Between two marks, the second count less the first is the live
+    messages of the calls counted between them, and reading it waits for
+    the device. A caller takes it for its own reductions only where those
+    calls are as many as its own.
+    """
+    return _counted, live_counter(device).clone()
 
 
 def max_reduce(data, seg, n):
