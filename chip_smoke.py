@@ -192,15 +192,24 @@ Phases, each of which must pass:
      algorithms; (e) ``python -m repro_torch.launch.dryrun --mesh both``
      over minitron-8b's three LM cells, gin-tu:molecule,
      mind:retrieval_cand, mind:train_batch, nequip:ogb_products and
-     moonshot-v1-16b-a3b:decode_32k: every cell "ok", each record printed.
+     moonshot-v1-16b-a3b:decode_32k: every cell "ok", each record printed;
+ 17. PNA inference over a whole graph, run after phase 13: the benchmark
+     cell kron21.pna's forward (gbench/apps/pna.py: the kron21 graph, 2.1M
+     vertices and 63.5M edges, PNA at its published widths, features and
+     weights from one seed) through nn.gnn.apply's blocked layer: K1
+     launched once a block and layer, finite logits, the forward's seconds
+     and peak memory; every K1 launch of layers 0 and 1 (d = 100, 400-byte
+     rows, and d = 75, 300-byte rows) bit for bit against
+     hot_gather_two_tier_ref on the path's own rows, ids and hot_size, then
+     K1's numbers at both widths on those launches.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
 time by torch.profiler, and host microseconds per call. K1's and K3's are
 those of the mode the path launches: two-tier where it goes through
 ops.hot_gather or ops.hot_bag (the quickstart, PageRank, serve_scores, the
-bag, real-size PageRank-Delta), hot part in the serve caches (MIND's,
-GIN's and the gateway's). Each phase prints its wall time.
+bag, real-size PageRank-Delta, PNA's blocked layer), hot part in the serve
+caches (MIND's, GIN's and the gateway's). Each phase prints its wall time.
 Then one JSON line of per-kernel numbers, the card line again, and the
 final {"ok": true, ...} line. It exits non-zero, printing no result, when
 CUDA is unavailable or the repository's sources are missing.
@@ -4098,6 +4107,98 @@ def run_mesh(dev) -> None:
         fail(f"the mesh phase launched a kernel: {launched}")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: PNA inference over a whole graph, the kron21.pna cell's forward
+
+PNA_CELL = "kron21.pna"
+PNA_SEED = 2**31 + 1717   # the graph's labels, then the features and weights
+
+
+def run_pna_whole_graph(dev) -> list:
+    """Phase 17: PNA at its published widths over the kron21 graph, the
+    forward of the benchmark cell kron21.pna (``gbench/apps/pna.py``: the
+    cell's graph, features, weights and inputs from one seed), through
+    nn.gnn.apply's blocked layer. K1's launch count is set to 0 just before
+    one forward and must be n_layers x blocks just after it; every launch
+    of the first two layers (d = 100 and d = 75, K1's two row kernels) is
+    held bit for bit against hot_gather_two_tier_ref on the path's own
+    (h, src block, hot_size); the logits are finite. Returns K1's kernel
+    entries at the two widths, timed on the launches of one layer each."""
+    import torch
+
+    from gbench import graphs, spec
+    from gbench.apps import pna as pna_app
+    from repro_torch.kernels.hot_gather import ops, ref
+    from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+    from repro_torch.nn import gnn
+
+    bench = spec.benchmark()
+    cell = spec.cell(bench, PNA_CELL)
+    t0 = time.perf_counter()
+    g = graphs.make(spec.config(bench, cell["config"]), PNA_SEED, dev, weighted=False)
+    app = pna_app.App(g, spec.traffic(cell["traffic"]), dev)
+    torch.cuda.synchronize()
+    blocks = gnn.pna_blocks(g.indptr, gnn.BLOCK_EDGES)
+    layers = app.cfg.n_layers
+    print(f"PNA graph {cell['config']} (seed {PNA_SEED}): N {g.num_nodes}, E {g.num_edges}, "
+          f"{len(blocks)} blocks a layer ({time.perf_counter() - t0:.1f} s); {app.describe()}")
+
+    seen = []   # (h, src block, hot_size) of every K1 launch of the forward, in order
+    real = ops.hot_gather
+
+    def recording(prop, idx, hot_size=None):
+        seen.append((prop, idx, hot_size))
+        return real(prop, idx, hot_size)
+
+    app.warm_up()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hot_gather_hot_part.launches = 0
+    ops.hot_gather = recording
+    try:
+        t0 = time.perf_counter()
+        logits = app.trial(0, {})
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+    finally:
+        ops.hot_gather = real
+    launches = hot_gather_hot_part.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"PNA forward: {forward_s:.4f} s, logits {tuple(logits.shape)}, K1 launches "
+          f"{launches} (want {layers} x {len(blocks)}), peak {peak:.4f} GiB")
+    if launches != layers * len(blocks) or len(seen) != launches:
+        fail(f"PNA: K1 launched {launches} times ({len(seen)} recorded), not "
+             f"{layers} x {len(blocks)}")
+    if logits.shape != (g.num_nodes, app.cfg.d_out) or not torch.isfinite(logits).all():
+        fail("PNA: logits not finite or of the wrong shape")
+    del logits
+
+    entries = []
+    for layer, path, count in ((0, "kron21.pna d=100", 1),
+                               (1, "kron21.pna d=75", layers - 1)):
+        mix = [(h, hot, idx) for h, idx, hot in seen[layer * len(blocks):
+                                                      (layer + 1) * len(blocks)]]
+        err = 0.0
+        for h, hot, idx in mix:
+            got = ops.hot_gather(h, idx, hot)
+            want = ref.hot_gather_two_tier_ref(h, idx, hot)
+            torch.cuda.synchronize()
+            if not same_bits(got, want):
+                fail(f"K1 on {path} (hot {hot} of N={h.shape[0]}, E={idx.shape[0]}): differs "
+                     f"from its plain version")
+            err = max(err, float((got - want).nan_to_num(nan=0.0).abs().max()))
+            del got, want
+        print(f"K1 on {path}: {len(mix)} launches of layer {layer} bit-identical to "
+              f"hot_gather_two_tier_ref (d={mix[0][0].shape[1]}, hot_size {mix[0][1]})")
+        res = k1_numbers(path, mix, [count] * len(mix), err, two_tier=True)
+        entries.append(dict(name="hot_gather", route="cuda",
+                            source="src/repro_torch/csrc/hot_gather.cu",
+                            replaces="src/repro/kernels/hot_gather/hot_gather.py:26",
+                            path=path, **res))
+        torch.cuda.empty_cache()
+    return entries
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -4107,10 +4208,13 @@ def phase(label: str, fn, *args):
 
 
 # phases that ``--only`` runs alone after the set-up (phase 1 is not needed:
-# they launch no kernel of the port)
+# 14-16 launch no kernel of the port, and 17 builds K1 at its first launch;
+# 17 prints its own kernels line)
 ONLY = {"14": lambda dev: phase("14 (LM serving)", run_lm_serving, dev),
         "15": lambda dev: phase("15 (LM training)", run_lm_training, dev),
-        "16": lambda dev: phase("16 (the mesh and sharding layer)", run_mesh, dev)}
+        "16": lambda dev: phase("16 (the mesh and sharding layer)", run_mesh, dev),
+        "17": lambda dev: print(json.dumps({"kernels": phase(
+            "17 (PNA over a whole graph)", run_pna_whole_graph, dev)}))}
 
 
 def main(argv=None) -> int:
@@ -4118,7 +4222,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one card and check it.")
     ap.add_argument("--only", default="", help=f"comma-separated phases of {sorted(ONLY)} "
-                    "to run alone (no kernels line and no final result line)")
+                    "to run alone (no final result line; a kernels line from 17 only)")
     only = [x for x in ap.parse_args(argv).only.split(",") if x]
     if set(only) - set(ONLY):
         ap.error(f"--only takes phases of {sorted(ONLY)}")
@@ -4224,6 +4328,10 @@ def main(argv=None) -> int:
     k1_gateway = phase("13 (the gateway and chaos over MIND serving)", run_gateway, dev, params)
     kernels.insert(6, dict(name="hot_gather", route="cuda", source=source, replaces=k1_tpu,
                            path="mind gateway", **k1_gateway))
+    # the earlier phases' K1 tensors go before PNA's 32 GiB forward
+    del k1_mix, dense_mix, cache_mix, gnn_mix
+    torch.cuda.empty_cache()
+    kernels[7:7] = phase("17 (PNA over a whole graph)", run_pna_whole_graph, dev)
     if any(k["launches"] < 1 for k in kernels):
         fail("a kernel's path did not launch it")
     # training runs after the kernels' timing: after its profiled fit,
@@ -4231,7 +4339,7 @@ def main(argv=None) -> int:
     phase("11 (training)", run_training, dev, params, real_graph)
     # the earlier phases' tensors on the card go before the 22-34 GB message
     # tensors of phase 12
-    del params, k1_mix, dense_mix, cache_mix, gnn_mix
+    del params
     torch.cuda.empty_cache()
     phase("12 (GRASP-partitioned GIN training)", run_grasp_training, dev, real_graph, qs_graph)
     # the LMs' float32 weights (31 GB for minitron-8b) after every earlier

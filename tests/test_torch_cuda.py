@@ -2,12 +2,14 @@
 the paths through them (PageRank, the graph apps, MIND) against the CPU.
 
 These tests need an NVIDIA GPU and skip elsewhere. The JAX package is not
-installed beside the card, so this file imports only the port and runs
-without the repository's conftest:
+installed beside the card, so this file imports only the port (and the
+benchmark's plain PNA reference) and runs without the repository's conftest:
 
     python -m pytest -q --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from repro_torch import apps
 from repro_torch.graph import generate
 from repro_torch.kernels.hot_gather import hot_gather as kernels
 from repro_torch.kernels.hot_gather import ops, ref
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -515,6 +519,79 @@ def test_gnn_models_on_card_match_cpu(cuda, arch):
         assert got.dtype == want.dtype and got.shape == want.shape
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+
+
+def pna_csr_case(scale: int, seed: int = 0):
+    """PNA at its published widths (d 75, 100 features) on an RMAT graph's
+    destination-sorted CSR: (cfg, params, batch) on the CPU."""
+    from repro_torch.configs import base
+    from repro_torch.nn import gnn
+
+    g = generate.rmat(scale, 16, seed=seed)
+    indptr = torch.as_tensor(g.indptr.astype(np.int32))
+    gen = torch.Generator().manual_seed(seed)
+    cfg = base.get_arch("pna")
+    params = gnn.init(gen, cfg, 100, device="cpu")
+    batch = {"x": torch.randn(g.num_nodes, 100, generator=gen), "indptr": indptr,
+             "src": torch.as_tensor(g.indices.astype(np.int32)),
+             "dst": torch.as_tensor(g.dst_ids())}
+    return cfg, params, batch
+
+
+@pytest.mark.cuda
+def test_pna_blocked_on_card_matches_cpu(cuda, monkeypatch):
+    """The blocked PNA layer on the card (K1 gathering 400- and 300-byte
+    rows, blocks of 2^15 edges) against the CPU, within 1e-4 (the card's
+    atomic sums), with one K1 launch a block and layer."""
+    from repro_torch.nn import gnn
+
+    cfg, params, batch = pna_csr_case(14)
+    monkeypatch.setattr(gnn, "BLOCK_EDGES", 1 << 15)
+    n_blocks = len(gnn.pna_blocks(batch["indptr"], gnn.BLOCK_EDGES))
+    assert n_blocks > 4
+    with torch.no_grad():
+        want = gnn.apply(params, cfg, batch)
+        before = kernels.hot_gather_hot_part.launches
+        got = gnn.apply(gnn.to_device(params, cuda), cfg,
+                        {k: v.to(cuda) if isinstance(v, torch.Tensor) else v
+                         for k, v in batch.items()})
+        torch.cuda.synchronize()
+    assert kernels.hot_gather_hot_part.launches - before == cfg.n_layers * n_blocks
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_pna_reference_bfloat16_fails_the_cells_limit(cuda):
+    """On the card, the plain reference in bfloat16 (the benchmark's
+    control) reads a logit error above the kron21.pna cell's limit, and
+    the blocked float32 layer one below it; both against the reference
+    in float64 (the check's)."""
+    import json
+    from pathlib import Path
+
+    from gbench.reference import pna as pna_ref
+    from repro_torch.nn import gnn
+
+    limit = json.loads((Path(__file__).resolve().parents[1] / "gbench" / "limits"
+                        / "kron21.pna.json").read_text())["logit_err"]
+    cfg, params, batch = pna_csr_case(15, seed=1)
+    params = gnn.to_device(params, cuda)
+    batch = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+
+    deg = (batch["indptr"][1:] - batch["indptr"][:-1]).double()
+
+    def ref(dtype):
+        return pna_ref.pna_forward(params, batch["x"], batch["indptr"], batch["src"],
+                                   float(torch.log1p(deg).mean()), cfg.aggregators,
+                                   cfg.scalers, dtype=dtype).double()
+
+    want = ref(torch.float64)
+    rms = float(want.pow(2).mean().sqrt())
+    with torch.no_grad():
+        program = float((gnn.apply(params, cfg, batch).double() - want).abs().max()) / rms
+    control = float((ref(torch.bfloat16) - want).abs().max()) / rms
+    assert program < limit < control
 
 
 @pytest.mark.cuda
