@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only 16     # the set-up, then phase 16 alone
+    python3 chip_smoke.py --only 18     # the segment sum at the PRD cells' shapes
 
 
 Phases, each of which must pass:
@@ -22,9 +23,11 @@ Phases, each of which must pass:
      bit-identical, and its own path, the aligned pull sum, against the
      engine's pull;
   4. the quickstart pipeline (examples/quickstart_torch.main("cuda")) with
-     PageRank through K1 and the paper's orderings;
+     PageRank through K1 and the segment-sum kernel (once an iteration
+     each), against the same PageRank on the CPU, and the paper's orderings;
   5. PageRank at real size (``lj`` at scale 22: 4.19M vertices) through K1
-     against PageRank with the plain gather on the card, six runs of each;
+     against PageRank with the plain gather on the card, six runs of each,
+     each launching the segment-sum kernel once an iteration;
   6. K3 (hot embedding bag) against its plain versions, bit for bit, in
      its hot-part and two-tier modes (the latter without and with cold
      ranks, on bags with -1 and >= V ids mixed in): the JAX package's
@@ -46,14 +49,15 @@ Phases, each of which must pass:
      card (PageRank and PageRank-Delta through K1, SSSP, BC, Radii in both
      orders, then RRIP vs GRASP on each app's trace), each app's output
      against the same function on the CPU (SSSP, BC's level and sigma,
-     Radii exact; PRD rtol 1e-4 atol 1e-7; BC's delta rtol 1e-4), K1
-     launched once per PR and PRD iteration; (b) all 13 LLC policies on
-     the quickstart's PR trace: the hit accounting holds and OPT misses
-     least (no other order is asserted); (c) at real size (the ``lj``
-     graph of phase 5): PRD through K1 against the plain gather (rel
-     1e-4, K1 once per iteration), SSSP from 0 (no edge relaxes further,
-     the segment-min kernel once per iteration, its count of live
-     messages the candidates not +inf), BC from 0 (its levels are the hop
+     Radii exact; PRD rtol 1e-4 atol 1e-7; BC's delta rtol 1e-4), K1 and
+     the segment-sum kernel launched once per PR and PRD iteration; (b)
+     all 13 LLC policies on the quickstart's PR trace: the hit accounting
+     holds and OPT misses least (no other order is asserted); (c) at real
+     size (the ``lj`` graph of phase 5): PRD through K1 against the plain
+     gather (rel 1e-4, K1 and the segment-sum kernel once per iteration),
+     SSSP from 0 (no edge relaxes further, the segment-min kernel once per
+     iteration, its count of live messages the candidates not +inf), BC
+     from 0 (its levels are the hop
      distances of a unit-weight SSSP within 64 hops, sigma >= 1 where
      reached) and Radii from roots 0..7 (bit 0 set exactly where BC
      reached, radii >= level), each with its wall ms, iterations and peak
@@ -201,7 +205,15 @@ Phases, each of which must pass:
      and peak memory; every K1 launch of layers 0 and 1 (d = 100, 400-byte
      rows, and d = 75, 300-byte rows) bit for bit against
      hot_gather_two_tier_ref on the path's own rows, ids and hot_size, then
-     K1's numbers at both widths on those launches.
+     K1's numbers at both widths on those launches;
+ 18. the segment-sum kernel (PageRank-Delta's and PageRank's pull sum) on
+     the graphs of the cells kron25.prd and urand25.prd (scale 25, 1.05e9
+     and 1.07e9 edges): apps.pagerank_delta there launches it once an
+     iteration (the count its kernels-line entry reports); over PRD's first
+     messages, two launches bit for bit,
+     every row within the kernel's error bound of its float64 sum and the
+     plain version within its own; then its times beside its byte bound,
+     the plain version and index_add_ over the CSR's dst.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
@@ -748,15 +760,20 @@ def run_quickstart(dev) -> int:
     import quickstart_torch
     from repro_torch import apps
     from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+    from repro_torch.kernels.segment_sum.segment_sum import segment_sum
 
-    hot_gather_hot_part.launches = 0
+    hot_gather_hot_part.launches = segment_sum.launches = 0
     out = quickstart_torch.main(str(dev))
-    launches = hot_gather_hot_part.launches
+    launches, ss_launches = hot_gather_hot_part.launches, segment_sum.launches
     r = out["results"]
     pr = out["pagerank"]
-    print(f"quickstart: K1 launches {launches}")
+    print(f"quickstart: K1 launches {launches}, segment-sum launches {ss_launches}")
     if launches < 1:
         fail("quickstart: PageRank did not go through K1")
+    # K1 once a PageRank iteration and once in step 5; the pull sum once an iteration
+    if ss_launches != launches - 1:
+        fail(f"quickstart: {ss_launches} segment-sum launches for {launches - 1} PageRank "
+             f"iterations")
     if not (r["grasp"].misses < r["rrip"].misses < r["lru"].misses):
         fail("quickstart: GRASP < RRIP < LRU misses does not hold")
     if not r["opt"].misses < r["grasp"].misses:
@@ -787,6 +804,7 @@ def run_real_pagerank(dev, g2) -> int:
 
     from repro_torch import apps
     from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+    from repro_torch.kernels.segment_sum.segment_sum import segment_sum
 
     base = torch.cuda.memory_allocated(dev)  # earlier phases' tensors, not counted
     dg = g2.device(dev)
@@ -798,7 +816,7 @@ def run_real_pagerank(dev, g2) -> int:
     for impl in ("hot", "plain", "plain", "hot") * 3:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        hot_gather_hot_part.launches = 0
+        hot_gather_hot_part.launches = segment_sum.launches = 0
         t0 = time.perf_counter()
         ranks[impl] = apps.pagerank(dg, tol=0.0, max_iters=PR_ITERS, gather_impl=impl)
         torch.cuda.synchronize()
@@ -808,7 +826,10 @@ def run_real_pagerank(dev, g2) -> int:
         runs[impl].append(ms)
         print(f"pagerank real size, {impl} gather: {ms:.4f} ms/iteration, peak device "
               f"memory of the graph and PageRank {peak:.3f} GiB, K1 launches "
-              f"{hot_gather_hot_part.launches}")
+              f"{hot_gather_hot_part.launches}, segment-sum launches {segment_sum.launches}")
+        if segment_sum.launches != PR_ITERS:  # the pull sum, either gather
+            fail(f"real-size PageRank, {impl} gather: {segment_sum.launches} segment-sum "
+                 f"launches for {PR_ITERS} iterations")
     for impl, ms in runs.items():
         print(f"pagerank real size, {impl} gather over {len(ms)} runs: ms/iteration min "
               f"{min(ms):.4f} median {statistics.median(ms):.4f} max {max(ms):.4f}")
@@ -1408,15 +1429,18 @@ def run_graph_suite(dev) -> None:
     import graph_suite_torch
     from repro_torch import apps
     from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+    from repro_torch.kernels.segment_sum.segment_sum import segment_sum
 
-    hot_gather_hot_part.launches = 0
+    hot_gather_hot_part.launches = segment_sum.launches = 0
     out = graph_suite_torch.main("tw", 13, str(dev))
-    launches = hot_gather_hot_part.launches
+    launches, ss_launches = hot_gather_hot_part.launches, segment_sum.launches
     iters = out["iters"]
     want = sum(it["pr"] + it["prd"] for it in iters.values())
-    print(f"graph suite: K1 launches {launches}, PR + PRD iterations {want}")
-    if launches != want:
-        fail(f"graph suite: {launches} K1 launches for {want} PR and PRD iterations")
+    print(f"graph suite: K1 launches {launches}, segment-sum launches {ss_launches}, PR + PRD "
+          f"iterations {want}")
+    if launches != want or ss_launches != want:
+        fail(f"graph suite: {launches} K1 and {ss_launches} segment-sum launches for {want} PR "
+             f"and PRD iterations")
     for label, g in out["graphs"].items():
         card = out["outputs"][label]
         cpu, _, cpu_iters = graph_suite_torch.run_apps(g, f"{label}, on the CPU", "cpu")
@@ -1443,12 +1467,14 @@ def run_graph_suite(dev) -> None:
 
     dg = out["graphs"]["dbg"].device(dev)
     stats = {}
-    hot_gather_hot_part.launches = 0
+    hot_gather_hot_part.launches = segment_sum.launches = 0
     apps.pagerank_delta(dg, stats=stats)
-    launches = hot_gather_hot_part.launches
-    print(f"graph suite: PRD alone, {stats['iters']} iterations, K1 launches {launches}")
-    if launches != stats["iters"]:
-        fail(f"PRD: {launches} K1 launches for {stats['iters']} iterations")
+    launches, ss_launches = hot_gather_hot_part.launches, segment_sum.launches
+    print(f"graph suite: PRD alone, {stats['iters']} iterations, K1 launches {launches}, "
+          f"segment-sum launches {ss_launches}")
+    if launches != stats["iters"] or ss_launches != stats["iters"]:
+        fail(f"PRD: {launches} K1 and {ss_launches} segment-sum launches for {stats['iters']} "
+             f"iterations")
 
 
 def run_policies(qs_graph) -> None:
@@ -1488,6 +1514,7 @@ def run_real_suite(dev, g2) -> tuple[int, dict]:
     from repro_torch.graph.generate import add_uniform_weights
     from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
     from repro_torch.kernels.segment_min.segment_min import segment_min
+    from repro_torch.kernels.segment_sum.segment_sum import segment_sum
 
     t0 = time.perf_counter()
     out_csr = transpose(add_uniform_weights(g2, seed=1))
@@ -1499,26 +1526,30 @@ def run_real_suite(dev, g2) -> tuple[int, dict]:
     d_out = out_csr.device(dev)
     d_hops = dataclasses.replace(d_out, weights=None)  # the same edges, unit weights
 
-    def run(label, fn, sssp=False):
+    def run(label, fn, sssp=False, prd=False):
         """One app run; SSSP's must launch the segment-min kernel once an
-        iteration and count its live messages, the others never launch it."""
+        iteration and count its live messages, PRD's pull the segment-sum
+        kernel once an iteration; the others launch neither."""
         stats = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        hot_gather_hot_part.launches = segment_min.launches = 0
+        hot_gather_hot_part.launches = segment_min.launches = segment_sum.launches = 0
         t0 = time.perf_counter()
         res = fn(stats)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        sm_launches = segment_min.launches
+        sm_launches, ss_launches = segment_min.launches, segment_sum.launches
         peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
         live = f", live messages {stats['live_messages']}" if sssp else ""
         print(f"real-size {label}: {ms:.3f} ms, {stats['iters']} iterations "
               f"({ms / max(stats['iters'], 1):.4f} ms each), peak device memory of the graphs "
               f"and the app {peak:.3f} GiB, K1 launches {hot_gather_hot_part.launches}, "
-              f"segment-min launches {sm_launches}{live}")
+              f"segment-min launches {sm_launches}, segment-sum launches {ss_launches}{live}")
         if sm_launches != (stats["iters"] if sssp else 0):
             fail(f"real-size {label}: {sm_launches} segment-min launches for "
+                 f"{stats['iters']} iterations")
+        if ss_launches != (stats["iters"] if prd else 0):
+            fail(f"real-size {label}: {ss_launches} segment-sum launches for "
                  f"{stats['iters']} iterations")
         if sssp and not isinstance(stats["live_messages"], int):
             fail(f"real-size {label}: live messages {stats['live_messages']!r}")
@@ -1530,7 +1561,8 @@ def run_real_suite(dev, g2) -> tuple[int, dict]:
     ranks, prd_launches, prd_ms = {}, set(), {"hot": [], "plain": []}
     for impl in PRD_TURNS:
         ranks[impl], st, launches, ms = run(
-            f"PRD, {impl} gather", lambda st: apps.pagerank_delta(dg, gather_impl=impl, stats=st))
+            f"PRD, {impl} gather", lambda st: apps.pagerank_delta(dg, gather_impl=impl, stats=st),
+            prd=True)
         it = st["iters"]
         prd_ms[impl].append(ms / it)
         if impl == "hot" and launches != it:
@@ -2904,14 +2936,16 @@ def run_gateway(dev, params) -> dict:
 # phase 14: LM serving (nn.transformer, LMServeEngine, lm_loop, --engine lm)
 # ---------------------------------------------------------------------------
 def kernel_counters() -> tuple:
-    """K1's, K2's, K3's and the segment-min kernel's wrappers: each counts
-    its launches on the card."""
+    """K1's, K2's, K3's, the segment-min and the segment-sum kernel's
+    wrappers: each counts its launches on the card."""
     from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
     from repro_torch.kernels.hot_gather.hot_gather import (hot_gather_hot_part,
                                                            hot_gather_segment_sum)
     from repro_torch.kernels.segment_min.segment_min import segment_min
+    from repro_torch.kernels.segment_sum.segment_sum import segment_sum
 
-    return hot_gather_hot_part, hot_gather_segment_sum, hot_bag_hot_part, segment_min
+    return (hot_gather_hot_part, hot_gather_segment_sum, hot_bag_hot_part, segment_min,
+            segment_sum)
 
 
 def lm_close(label: str, got, want, tol: dict) -> float:
@@ -4199,6 +4233,129 @@ def run_pna_whole_graph(dev) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the segment-sum kernel at the PRD cells' shapes
+
+SEGSUM_CELLS = ("kron25.prd", "urand25.prd")
+SEGSUM_SEED = 2**31 + 2929   # the graphs' labels
+SEGSUM_PRD_ITERS = 3         # PageRank-Delta's iterations whose launches phase 18 counts
+
+
+def segsum_errors(got, exact, lengths, roundings_per_edge: float, roundings: float):
+    """(every row within its bound, the largest error over its row's sum) of
+    a sum of positive messages against its float64 sum: the bound is
+    ``roundings + roundings_per_edge * length`` float32 roundings of the
+    row's sum, which for positive messages is its sum of magnitudes."""
+    import torch
+
+    err = (got.double() - exact).abs()
+    ok = bool((err <= (roundings + roundings_per_edge * lengths) * 2.0**-24 * exact).all())
+    rel = err / exact.clamp(min=1e-300)
+    return ok and bool(torch.isfinite(got).all()), float(rel.max())
+
+
+def run_segment_sum(dev) -> list:
+    """Phase 18: the segment-sum kernel on the graphs of the benchmark cells
+    kron25.prd and urand25.prd (``gbench/graphs.py``, a fixed seed). First
+    ``apps.pagerank_delta`` runs there, as the cells run it, for
+    ``SEGSUM_PRD_ITERS`` iterations with the launch count set to 0: it must
+    launch the kernel once an iteration, and that count is the entry's
+    ``launches``. Then PageRank-Delta's first messages (the initial ranks
+    over the out-degrees, gathered through K1): two launches must repeat
+    bit for bit and each row must lie within the kernel's error bound of
+    its float64 sum, (64 + length / 1024) roundings of the row's sum (the
+    kernel's own is 30 + the tiles the row spans); the plain version
+    (``index_add_`` over the rows' ids) within its serial bound of (1 +
+    length) roundings. Times per launch: the kernel (``ms``, ``device_ms``,
+    ``host_us``), the plain version (``plain_ms``) and ``index_add_`` over
+    the CSR's ``dst``, what the pull ran before (``library_ms``,
+    ``library_device_ms``); the bound reads the messages and offsets once
+    and writes the sums once (4E + 4(N + 1) + 4N bytes)."""
+    import torch
+
+    from gbench import graphs, spec
+    from repro_torch import apps
+    from repro_torch.apps import engine
+    from repro_torch.graph.csr import DeviceCSR
+    from repro_torch.kernels.segment_sum import ref
+    from repro_torch.kernels.segment_sum.segment_sum import segment_sum
+
+    bench = spec.benchmark()
+    entries = []
+    for name in SEGSUM_CELLS:
+        cell = spec.cell(bench, name)
+        t0 = time.perf_counter()
+        g = graphs.make(spec.config(bench, cell["config"]), SEGSUM_SEED, dev, weighted=False)
+        n, e = g.num_nodes, g.num_edges
+        csr = DeviceCSR(indptr=g.indptr, indices=g.indices, dst=g.dst, weights=None,
+                        num_nodes=n)
+        out_deg = engine.sum_reduce(torch.ones(e, device=dev), g.indices, n)
+        msgs = engine.gather_src(csr, torch.full((n,), 0.15 / n, device=dev)
+                                 / out_deg.clamp(min=1.0))
+        del out_deg
+        torch.cuda.synchronize()
+        print(f"segment sum on {name}'s graph (seed {SEGSUM_SEED}): N {n}, E {e} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        stats = {}
+        segment_sum.launches = 0
+        apps.pagerank_delta(csr, max_iters=SEGSUM_PRD_ITERS, stats=stats)
+        torch.cuda.synchronize()
+        launches = segment_sum.launches
+        print(f"segment sum on {name}: PageRank-Delta, {stats['iters']} iterations, "
+              f"segment-sum launches {launches}")
+        if launches != stats["iters"] or launches < 1:
+            fail(f"segment sum on {name}: PageRank-Delta launched the kernel {launches} times "
+                 f"in {stats['iters']} iterations")
+
+        before = segment_sum.launches
+        got = segment_sum(msgs, g.indptr, n)
+        again = segment_sum(msgs, g.indptr, n)
+        torch.cuda.synchronize()
+        if segment_sum.launches - before != 2:
+            fail(f"segment sum on {name}: {segment_sum.launches - before} launches for 2 calls")
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            fail(f"segment sum on {name}: two launches differ")
+        del again
+        exact = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(0, g.dst,
+                                                                          msgs.double())
+        lengths = (g.indptr[1:] - g.indptr[:-1]).double()
+        ok, rel = segsum_errors(got, exact, lengths, 1 / 1024, 64)
+        plain = ref.segment_sum_ref(msgs, g.indptr, n)
+        plain_ok, plain_rel = segsum_errors(plain, exact, lengths, 1, 1)
+        del plain, exact, lengths
+        print(f"segment sum on {name}: largest error over a row's sum {rel:.3e} (plain "
+              f"version {plain_rel:.3e}); every row within its bound: kernel {ok}, plain "
+              f"{plain_ok}; two launches bit for bit")
+        if not ok or not plain_ok:
+            fail(f"segment sum on {name}: a row outside its bound (kernel {ok}, plain "
+                 f"{plain_ok})")
+        del got
+
+        res = timed("", lambda: segment_sum(msgs, g.indptr, n))
+        res["plain_ms"] = time_ms(lambda: ref.segment_sum_ref(msgs, g.indptr, n))
+
+        def library():
+            return msgs.new_zeros(n).index_add_(0, g.dst, msgs)
+
+        res["library_ms"], res["library_device_ms"] = time_ms(library), device_ms(library)
+        res["bound_ms"], res["bound_by"] = bound(4 * e + 4 * (n + 1) + 4 * n)
+        res.update(max_rel_err=rel, plain_max_rel_err=plain_rel, launches=launches,
+                   shape=f"E={e} float32 messages over N={n} rows, 1 an iteration")
+        print(f"segment sum on {name} ({res['shape']}), per launch: {res['ms']:.4f} ms "
+              f"(device {fmt_ms(res['device_ms'])}, host {res['host_us']:.2f} us/call), "
+              f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms; index_add_ "
+              f"over dst {res['library_ms']:.4f} ms (device "
+              f"{fmt_ms(res['library_device_ms'])})")
+        entries.append(dict(name="segment_sum", route="cuda",
+                            source="src/repro_torch/csrc/segment_sum.cu",
+                            replaces="none: the JAX package's pull sums with XLA's "
+                                     "jax.ops.segment_sum",
+                            path=f"{name} shape", **res))
+        del g, csr, msgs
+        torch.cuda.empty_cache()
+    return entries
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -4208,13 +4365,15 @@ def phase(label: str, fn, *args):
 
 
 # phases that ``--only`` runs alone after the set-up (phase 1 is not needed:
-# 14-16 launch no kernel of the port, and 17 builds K1 at its first launch;
-# 17 prints its own kernels line)
+# 14-16 launch no kernel of the port, and 17 and 18 build theirs at their
+# first launch; 17 and 18 print their own kernels lines)
 ONLY = {"14": lambda dev: phase("14 (LM serving)", run_lm_serving, dev),
         "15": lambda dev: phase("15 (LM training)", run_lm_training, dev),
         "16": lambda dev: phase("16 (the mesh and sharding layer)", run_mesh, dev),
         "17": lambda dev: print(json.dumps({"kernels": phase(
-            "17 (PNA over a whole graph)", run_pna_whole_graph, dev)}))}
+            "17 (PNA over a whole graph)", run_pna_whole_graph, dev)})),
+        "18": lambda dev: print(json.dumps({"kernels": phase(
+            "18 (the segment sum at the PRD cells' shapes)", run_segment_sum, dev)}))}
 
 
 def main(argv=None) -> int:
@@ -4332,6 +4491,7 @@ def main(argv=None) -> int:
     del k1_mix, dense_mix, cache_mix, gnn_mix
     torch.cuda.empty_cache()
     kernels[7:7] = phase("17 (PNA over a whole graph)", run_pna_whole_graph, dev)
+    kernels += phase("18 (the segment sum at the PRD cells' shapes)", run_segment_sum, dev)
     if any(k["launches"] < 1 for k in kernels):
         fail("a kernel's path did not launch it")
     # training runs after the kernels' timing: after its profiled fit,

@@ -9,12 +9,22 @@ into.
 Direction switching (Ligra's push/pull heuristic) selects pull when the
 active frontier covers more than ``switch_fraction`` of edges.
 
-Reductions: ``sum_reduce`` is ``index_add_``. ``min_reduce`` of (E,) float32
-messages with int32 or int64 ids is the hand-written segment-min kernel on
-the card (``kernels/segment_min``; its plain version on the CPU); its other
-inputs, ``max_reduce`` and ``or_reduce`` are ``scatter_reduce_``. A minimum
-has no order, so either way it keeps the reference's bits. The kernel path
-counts the messages it reduces that are not +inf (``live_messages``).
+Reductions: ``sum_reduce`` is ``index_add_``. In ``edge_map_pull`` with
+``reduce_fn=sum_reduce``, (E,) float32 messages on the card are summed
+instead by the hand-written segment-sum kernel (``kernels/segment_sum``) over
+the in-CSR's rows: only there are the ids known to be ``g.dst``, sorted, with
+``g.indptr`` as their offsets. It makes no atomic and repeats bit for bit,
+but sums in another order than ``index_add_``. On the CPU, and for (E, d)
+messages, the pull keeps ``index_add_``; so do ``sum_reduce``'s other
+callers, whose ids are not sorted: the out-degree sums of PageRank and
+PageRank-Delta over ``g.indices`` and both of BC's sums.
+
+``min_reduce`` of (E,) float32 messages with int32 or int64 ids is the
+hand-written segment-min kernel on the card (``kernels/segment_min``; its
+plain version on the CPU); its other inputs, ``max_reduce`` and
+``or_reduce`` are ``scatter_reduce_``. A minimum has no order, so either way
+it keeps the reference's bits. The kernel path counts the messages it
+reduces that are not +inf (``live_messages``).
 
 Under torch.profiler each edge map opens two spans (``repro_torch.spans``):
 ``engine.gather`` around producing the messages and ``engine.reduce``
@@ -32,6 +42,7 @@ from repro_torch import spans
 from repro_torch.graph.csr import DeviceCSR
 from repro_torch.kernels.hot_gather import ops as hot_ops
 from repro_torch.kernels.segment_min.segment_min import IDS, live_counter, segment_min
+from repro_torch.kernels.segment_sum.segment_sum import segment_sum
 
 Reducer = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 
@@ -122,6 +133,8 @@ def edge_map_pull(
     ``active_dst`` masks destinations (inactive vertices receive
     ``identity``). Messages into inactive vertices are replaced by the
     identity before the reduction, matching Ligra's edgeMap semantics.
+    With ``sum_reduce``, (E,) float32 messages on the card are summed over
+    ``g``'s rows by the segment-sum kernel (``g.indptr`` must be int32).
     """
     with spans.span("engine.gather"):
         msgs = gather_src(g, prop, gather_impl)
@@ -132,6 +145,9 @@ def edge_map_pull(
             shape = (-1,) + (1,) * (msgs.dim() - 1)
             msgs = torch.where(mask.reshape(shape), msgs, identity)
     with spans.span("engine.reduce"):
+        if (reduce_fn is sum_reduce and msgs.is_cuda and msgs.dtype == torch.float32
+                and msgs.dim() == 1):
+            return segment_sum(msgs, g.indptr, g.num_nodes)
         return reduce_fn(msgs, g.dst, g.num_nodes)
 
 
