@@ -56,8 +56,7 @@ Phases, each of which must pass:
      size (the ``lj`` graph of phase 5): PRD through K1 against the plain
      gather (rel 1e-4, K1 and the segment-sum kernel once per iteration),
      SSSP from 0 (no edge relaxes further, the segment-min kernel once per
-     iteration, its count of live messages the candidates not +inf), BC
-     from 0 (its levels are the hop
+     iteration), BC from 0 (its levels are the hop
      distances of a unit-weight SSSP within 64 hops, sigma >= 1 where
      reached) and Radii from roots 0..7 (bit 0 set exactly where BC
      reached, radii >= level), each with its wall ms, iterations and peak
@@ -236,11 +235,13 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, os.path.join(ROOT, "examples"))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
-FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
+from gbench.peaks import FP32_FLOPS, HBM_BYTES_PER_S  # noqa: E402
+from gbench.trace import spin_pad  # noqa: E402
+
 REAL_SCALE = 22               # lj: 4.19M vertices vs LiveJournal's 5M (paper Table V)
 PR_ITERS = 20
 PRD_TURNS = ("hot", "plain", "plain", "hot") * 3   # real-size PageRank-Delta runs
@@ -391,18 +392,6 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def spin_pad() -> None:
-    """Eight spin kernels (``spin_kernel``) and a synchronise: padding at
-    the edges of a torch.profiler window, where the profiler on the card
-    loses a few kernels (4 of 20 calls unpadded; 3 of the 16 spin kernels
-    padded). Readers of the window leave the spin kernels out."""
-    import torch
-
-    for _ in range(8):
-        torch.cuda._sleep(100_000)
-    torch.cuda.synchronize()
 
 
 def device_ms(fn, reps: int = 20) -> float | None:
@@ -1528,8 +1517,8 @@ def run_real_suite(dev, g2) -> tuple[int, dict]:
 
     def run(label, fn, sssp=False, prd=False):
         """One app run; SSSP's must launch the segment-min kernel once an
-        iteration and count its live messages, PRD's pull the segment-sum
-        kernel once an iteration; the others launch neither."""
+        iteration, PRD's pull the segment-sum kernel once an iteration; the
+        others launch neither."""
         stats = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1540,19 +1529,16 @@ def run_real_suite(dev, g2) -> tuple[int, dict]:
         ms = (time.perf_counter() - t0) * 1e3
         sm_launches, ss_launches = segment_min.launches, segment_sum.launches
         peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
-        live = f", live messages {stats['live_messages']}" if sssp else ""
         print(f"real-size {label}: {ms:.3f} ms, {stats['iters']} iterations "
               f"({ms / max(stats['iters'], 1):.4f} ms each), peak device memory of the graphs "
               f"and the app {peak:.3f} GiB, K1 launches {hot_gather_hot_part.launches}, "
-              f"segment-min launches {sm_launches}, segment-sum launches {ss_launches}{live}")
+              f"segment-min launches {sm_launches}, segment-sum launches {ss_launches}")
         if sm_launches != (stats["iters"] if sssp else 0):
             fail(f"real-size {label}: {sm_launches} segment-min launches for "
                  f"{stats['iters']} iterations")
         if ss_launches != (stats["iters"] if prd else 0):
             fail(f"real-size {label}: {ss_launches} segment-sum launches for "
                  f"{stats['iters']} iterations")
-        if sssp and not isinstance(stats["live_messages"], int):
-            fail(f"real-size {label}: live messages {stats['live_messages']!r}")
         return res, stats, hot_gather_hot_part.launches, ms
 
     # PageRank-Delta through K1 against the plain gather, in turns
@@ -1627,8 +1613,8 @@ def segment_min_numbers(g_out, source: int, dist, stats: dict) -> dict:
     """Replay ``apps.sssp(g_out, source)``'s iterations: reduce each
     iteration's candidates with the segment-min wrapper over the int32
     targets, as the app does, and hold it bit for bit against
-    ``ref.segment_min_ref`` and its count of live messages against the
-    candidates not +inf. Times, per launch and as the mean over the
+    ``ref.segment_min_ref``; count its live messages, the candidates not
+    +inf. Times, per launch and as the mean over the
     iterations: the wrapper (``ms``, ``device_ms``, ``host_us``), the
     plain version (``plain_ms``), and ``scatter_reduce_`` amin over int64
     targets widened once, what the port ran before (``library_ms``,
@@ -1638,11 +1624,10 @@ def segment_min_numbers(g_out, source: int, dist, stats: dict) -> dict:
     import torch
 
     from repro_torch.kernels.segment_min import ref
-    from repro_torch.kernels.segment_min.segment_min import live_counter, segment_min
+    from repro_torch.kernels.segment_min.segment_min import segment_min
 
     n, e = g_out.num_nodes, g_out.indices.shape[0]
     src_of_edge, tgt, tgt64 = g_out.dst.long(), g_out.indices, g_out.indices.long()
-    counter = live_counter(tgt.device)
 
     def library(c):
         out = torch.full((n,), float("inf"), device=c.device)
@@ -1658,31 +1643,25 @@ def segment_min_numbers(g_out, source: int, dist, stats: dict) -> dict:
     while bool(active.any()):
         cand = torch.where(active[src_of_edge], best_dist[src_of_edge] + g_out.weights,
                            float("inf"))
-        want_live = int((cand != float("inf")).sum())
-        before = counter.clone()
         best = segment_min(cand, tgt, n)
-        got_live = int(counter - before)
         if not torch.equal(best.view(torch.int32), ref.segment_min_ref(cand, tgt, n).view(
                 torch.int32)):
             fail(f"segment-min on real-size SSSP, iteration {iters}: differs from its plain "
                  f"version")
-        if got_live != want_live:
-            fail(f"segment-min on real-size SSSP, iteration {iters}: counted {got_live} live "
-                 f"messages, {want_live} not +inf")
         for key, v in timed("", lambda: segment_min(cand, tgt, n)).items():
             parts[key].append(v)
         parts["plain_ms"].append(time_ms(lambda: ref.segment_min_ref(cand, tgt, n)))
         parts["library_ms"].append(time_ms(lambda: library(cand)))
         parts["library_device_ms"].append(device_ms(lambda: library(cand)))
-        live += want_live
+        live += int((cand != float("inf")).sum())
         active = best < best_dist
         best_dist = torch.minimum(best_dist, best)
         iters += 1
         del cand, best
-    if iters != stats["iters"] or live != stats["live_messages"] or not torch.equal(
-            best_dist.view(torch.int32), dist.view(torch.int32)):
-        fail(f"segment-min replay of real-size SSSP: {iters} iterations, {live} live messages "
-             f"against the app's {stats['iters']}, {stats['live_messages']}, distances equal "
+    if iters != stats["iters"] or not torch.equal(best_dist.view(torch.int32),
+                                                  dist.view(torch.int32)):
+        fail(f"segment-min replay of real-size SSSP: {iters} iterations against the app's "
+             f"{stats['iters']}, distances equal "
              f"{torch.equal(best_dist.view(torch.int32), dist.view(torch.int32))}")
     res = {key: None if None in vals else sum(vals) / iters for key, vals in parts.items()}
     res["bound_ms"], res["bound_by"] = bound((4 * e * iters + 4 * live + 4 * n * iters) / iters)
@@ -1693,7 +1672,7 @@ def segment_min_numbers(g_out, source: int, dist, stats: dict) -> dict:
           f"host {res['host_us']:.2f} us/call), plain {res['plain_ms']:.4f} ms, bound "
           f"{res['bound_ms']:.4f} ms; scatter_reduce_ amin over int64 targets "
           f"{res['library_ms']:.4f} ms (device {fmt_ms(res['library_device_ms'])}); every "
-          f"iteration bit for bit, its live count exact")
+          f"iteration bit for bit")
     return res
 
 

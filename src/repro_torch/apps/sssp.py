@@ -11,7 +11,6 @@ from typing import Optional
 import torch
 
 from repro_torch import spans
-from repro_torch.apps import engine
 from repro_torch.apps.engine import min_reduce
 from repro_torch.graph.csr import DeviceCSR
 
@@ -35,15 +34,10 @@ def sssp(
     order and ``dist + w`` is the same float32 add, so the distances equal
     the JAX package's bit for bit.
 
-    ``stats``, when given, receives ``iters`` and ``live_messages``: the
-    candidates not +inf summed over the iterations (with finite weights,
-    the frontiers' out-edges), as the engine counted them, read once after
-    the loop, where the last flag read has already waited for the device;
-    None where a reduction did not go through the engine's counting path.
-    Under torch.profiler the flag read is an ``apps.flag`` span, each
-    iteration an ``apps.iter`` one, and its relaxation ``engine.gather``
-    then ``engine.reduce``, as in ``engine``'s edge maps
-    (``repro_torch.spans``).
+    ``stats``, when given, receives ``iters``. Under torch.profiler the
+    flag read is an ``apps.flag`` span, each iteration an ``apps.iter`` one,
+    and its relaxation ``engine.gather`` then ``engine.reduce``, as in
+    ``engine``'s edge maps (``repro_torch.spans``).
     """
     n = g_out.num_nodes
     dev = g_out.indices.device
@@ -51,7 +45,6 @@ def sssp(
         g_out.indices.shape, dtype=torch.float32, device=dev)
     # widened once: an int32 index is widened on every gather
     src_of_edge = g_out.dst.long()
-    mark = engine.live_messages(dev) if stats is not None else None
 
     dist = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
     dist[source] = 0.0
@@ -71,7 +64,5 @@ def sssp(
             dist = torch.minimum(dist, best)
         it += 1
     if stats is not None:
-        counted, live = engine.live_messages(dev)
         stats["iters"] = it
-        stats["live_messages"] = int(live - mark[1]) if counted - mark[0] == it else None
     return dist

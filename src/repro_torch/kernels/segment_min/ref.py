@@ -9,7 +9,7 @@ import torch
 
 
 def segment_min_ref(data: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """``(E,)`` float32 messages, ``(E,)`` int32 or int64 ids -> ``(n,)`` float32.
+    """``(E,)`` float32 messages, ``(E,)`` int32 ids -> ``(n,)`` float32.
 
     ``out[s]`` is the least message with id ``s``, or +inf for a segment
     with none; a NaN message makes its segment NaN. An id outside ``[0, n)``

@@ -2,9 +2,10 @@
 
 On the CPU the wrapper computes its plain version, ``scatter_reduce_`` amin
 over a +inf base; the CPU tests hold that path, ``engine.min_reduce``'s
-routing and SSSP's count of live messages. The card tests hold the CUDA
-kernel bit for bit against the plain version, and SSSP on the card against
-the CPU and the benchmark's plain reference. This file imports only the
+routing (int64 ids go to ``scatter_reduce_``) and SSSP against the
+benchmark's plain reference. The card tests hold the CUDA kernel bit for
+bit against the plain version, and SSSP on the card against the CPU and
+the benchmark's plain reference. This file imports only the
 port and the benchmark's reference, so the card tests run without the
 repository's conftest:
 
@@ -64,12 +65,11 @@ def same_bits(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def live_since(device):
-    """A function that returns the live messages the binding has counted
-    on ``device`` since this call (it waits for the device)."""
-    counter = kernel.live_counter(device)
-    start = counter.clone()
-    return lambda: int(counter - start)
+def route(id_dtype):
+    """What reduces float32 messages with ``id_dtype`` ids: the wrapper for
+    int32; for int64, which it refuses, ``engine.min_reduce``, which sends
+    them to ``scatter_reduce_``."""
+    return kernel.segment_min if id_dtype == torch.int32 else engine.min_reduce
 
 
 # --- the CPU's plain path ---------------------------------------------------
@@ -78,7 +78,7 @@ def live_since(device):
 @pytest.mark.parametrize("id_dtype", IDS)
 def test_plain_path_matches_scatter_reduce(id_dtype, targets):
     data, seg = messages(5003, 700, id_dtype, targets)
-    got = kernel.segment_min(data, seg, 700)
+    got = route(id_dtype)(data, seg, 700)
     assert got.dtype == torch.float32 and got.shape == (700,)
     assert same_bits(got, library_min(data, seg, 700))
 
@@ -87,16 +87,14 @@ def test_plain_path_matches_scatter_reduce(id_dtype, targets):
 def test_empty_segments_hold_inf(id_dtype):
     data = torch.tensor([3.0, -1.0, 2.5, -0.5])
     seg = torch.tensor([1, 1, 4, 4], dtype=id_dtype)
-    got = kernel.segment_min(data, seg, 6)
+    got = route(id_dtype)(data, seg, 6)
     assert same_bits(got, torch.tensor([INF, -1.0, INF, INF, -0.5, INF]))
 
 
 @pytest.mark.parametrize("e", [0, 1, 1001])
 def test_all_identity_input(e):
     data, seg = torch.full((e,), INF), torch.zeros(e, dtype=torch.int32)
-    live = live_since("cpu")
     assert same_bits(kernel.segment_min(data, seg, 5), torch.full((5,), INF))
-    assert live() == 0
 
 
 def test_nan_message_makes_its_segment_nan():
@@ -107,29 +105,19 @@ def test_nan_message_makes_its_segment_nan():
     assert torch.isnan(library_min(data, seg, 3)[0])
 
 
-def test_counter_counts_live_messages():
-    data, seg = messages(4096, 300, torch.int32, live=0.3)
-    counter = kernel.live_counter("cpu")
-    before = int(counter)
-    live = live_since("cpu")
-    kernel.segment_min(data, seg, 300)
-    kernel.segment_min(data[:100], seg[:100], 300)
-    want = int((data != INF).sum()) + int((data[:100] != INF).sum())
-    assert live() == want == int(counter) - before
-
-
 @pytest.mark.parametrize("bad", [-1, 300])
 @pytest.mark.parametrize("id_dtype", IDS)
 def test_plain_path_raises_on_an_id_out_of_range(id_dtype, bad):
     data, seg = messages(64, 300, id_dtype, live=1.0)
     seg[7] = bad
     with pytest.raises(RuntimeError):
-        kernel.segment_min(data, seg, 300)
+        route(id_dtype)(data, seg, 300)
 
 
 @pytest.mark.parametrize("data,seg,error", [
     (torch.zeros(4, dtype=torch.float64), torch.zeros(4, dtype=torch.int32), TypeError),
     (torch.zeros(4), torch.zeros(4, dtype=torch.int16), TypeError),
+    (torch.zeros(4), torch.zeros(4, dtype=torch.int64), TypeError),
     (torch.zeros(4, 2), torch.zeros(4, dtype=torch.int32), ValueError),
     (torch.zeros(4), torch.zeros(3, dtype=torch.int32), ValueError),
 ])
@@ -140,7 +128,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(data, seg, error):
 
 @pytest.mark.parametrize("reducer,data,seg,path", [
     ("min_reduce", torch.ones(6), torch.zeros(6, dtype=torch.int32), "kernel"),
-    ("min_reduce", torch.ones(6), torch.zeros(6, dtype=torch.int64), "kernel"),
+    ("min_reduce", torch.ones(6), torch.zeros(6, dtype=torch.int64), "scatter"),
     ("min_reduce", torch.ones(6, dtype=torch.int32), torch.zeros(6, dtype=torch.int32), "scatter"),
     ("min_reduce", torch.ones(6, dtype=torch.float64), torch.zeros(6, dtype=torch.int32),
      "scatter"),
@@ -150,9 +138,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(data, seg, error):
      "scatter"),
 ])
 def test_min_reduce_routes_by_dtype_and_shape(monkeypatch, reducer, data, seg, path):
-    """(E,) float32 messages take the segment-min kernel; other dtypes,
-    multi-column messages and the max and or reductions keep
-    ``scatter_reduce_``."""
+    """(E,) float32 messages with int32 ids take the segment-min kernel;
+    int64 ids, other dtypes, multi-column messages and the max and or
+    reductions keep ``scatter_reduce_``."""
     taken = []
 
     def spy(name, fn):
@@ -163,13 +151,8 @@ def test_min_reduce_routes_by_dtype_and_shape(monkeypatch, reducer, data, seg, p
 
     monkeypatch.setattr(engine, "segment_min", spy("kernel", engine.segment_min))
     monkeypatch.setattr(engine, "_scatter_reduce", spy("scatter", engine._scatter_reduce))
-    counted, live = engine.live_messages("cpu")
     getattr(engine, reducer)(data, seg, 3)
     assert taken == [path]
-    # only the kernel's path counts, a call and its live messages
-    counted_after, live_after = engine.live_messages("cpu")
-    assert counted_after - counted == (path == "kernel")
-    assert int(live_after - live) == (6 if path == "kernel" else 0)
 
 
 def gbench_graph(config, scale, device):
@@ -178,14 +161,17 @@ def gbench_graph(config, scale, device):
     return graphs.make(cfg, 2**31 + 11, torch.device(device), weighted=True)
 
 
-def sssp_against_reference(g, source):
-    """``apps.sssp`` with stats next to the benchmark's int64 reference."""
-    csr = DeviceCSR(indptr=g.indptr, indices=g.indices, dst=g.dst, weights=g.weights,
+def sssp_against_reference(g, source, weights=None):
+    """``apps.sssp`` with stats, over ``g`` or its edges with ``weights``,
+    and the benchmark's int64 reference in the dtype of its distances."""
+    weights = g.weights if weights is None else weights
+    csr = DeviceCSR(indptr=g.indptr, indices=g.indices, dst=g.dst, weights=weights,
                     num_nodes=g.num_nodes)
     stats = {}
     dist = apps.sssp(csr, source, stats=stats)
     want, frontier = gbench_sssp.sssp(g.indptr, g.indices, g.dst, g.weights, source)
-    return dist, want, frontier, stats
+    unreached = want == torch.iinfo(want.dtype).max
+    return dist, torch.where(unreached, INF, want.to(dist.dtype)), frontier, stats
 
 
 def scatter_min(data, seg, n):
@@ -195,33 +181,32 @@ def scatter_min(data, seg, n):
 
 
 @pytest.mark.parametrize("off_path", ["replaced_reducer", "float64_weights"])
-def test_sssp_live_messages_none_off_the_counting_path(monkeypatch, off_path):
-    """Where a reduction does not go through the engine's counting path,
-    ``stats["live_messages"]`` is None, not a count of 0."""
+def test_sssp_off_the_kernel_path_matches_the_reference(monkeypatch, off_path):
+    """Where a reduction does not take the segment-min kernel's route (a
+    replaced ``min_reduce``, as the benchmark's planted faults make, or
+    float64 candidates), SSSP still equals the reference: its distances
+    and one iteration for each of the reference's frontiers."""
     g = gbench_graph("kron25", 8, "cpu")
     weights = g.weights
     if off_path == "replaced_reducer":
         monkeypatch.setattr(sys.modules["repro_torch.apps.sssp"], "min_reduce", scatter_min)
     else:
         weights = weights.double()
-    csr = DeviceCSR(indptr=g.indptr, indices=g.indices, dst=g.dst, weights=weights,
-                    num_nodes=g.num_nodes)
-    stats = {}
-    apps.sssp(csr, int(torch.argmax(g.indptr[1:] - g.indptr[:-1])), stats=stats)
-    assert stats["iters"] >= 2 and stats["live_messages"] is None
+    source = int(torch.argmax(g.indptr[1:] - g.indptr[:-1]))
+    dist, want, frontier, stats = sssp_against_reference(g, source, weights)
+    assert dist.dtype == weights.dtype and torch.equal(dist, want)
+    assert stats["iters"] == len(frontier) >= 2
 
 
 @pytest.mark.parametrize("config", ["kron25", "urand25"])
-def test_sssp_live_messages_equal_the_reference_frontier(config):
-    """``stats["live_messages"]`` is the frontier's out-edges summed over
-    the iterations, as the benchmark's plain reference counts them."""
+def test_sssp_iterations_and_distances_equal_the_reference_frontier(config):
+    """SSSP's distances equal the benchmark's plain reference, in one
+    iteration for each of its frontiers."""
     g = gbench_graph(config, 10, "cpu")
     source = int(torch.argmax(g.indptr[1:] - g.indptr[:-1]))
     dist, want, frontier, stats = sssp_against_reference(g, source)
-    unreached = want == torch.iinfo(want.dtype).max
-    assert torch.equal(dist, torch.where(unreached, INF, want.to(torch.float32)))
+    assert torch.equal(dist, want)
     assert stats["iters"] == len(frontier) >= 2
-    assert stats["live_messages"] == sum(f for _, f in frontier) > 0
 
 
 # --- the kernel on the card -------------------------------------------------
@@ -229,27 +214,23 @@ def test_sssp_live_messages_equal_the_reference_frontier(config):
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("targets", ["uniform", "hubs"])
-@pytest.mark.parametrize("id_dtype", IDS)
-def test_kernel_matches_plain_bit_for_bit(cuda, id_dtype, targets, offset):
+def test_kernel_matches_plain_bit_for_bit(cuda, targets, offset):
     """80% +inf messages, uniform targets or half of them on four hubs;
     E is off a multiple of four, and ``offset`` 1 starts the arrays off
     16-byte alignment (the kernel's scalar loop)."""
-    data, seg = messages(1_000_003 + offset, 100_000, id_dtype, targets, seed=3)
+    data, seg = messages(1_000_003 + offset, 100_000, torch.int32, targets, seed=3)
     data, seg = data.to(cuda)[offset:], seg.to(cuda)[offset:]
-    live = live_since(cuda)
     before = kernel.segment_min.launches
     got = kernel.segment_min(data, seg, 100_000)
     torch.cuda.synchronize()
     assert kernel.segment_min.launches == before + 1
     assert same_bits(got, ref.segment_min_ref(data, seg, 100_000))
-    assert live() == int((data != INF).sum())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("id_dtype", IDS)
-def test_kernel_nan_and_empty_segments(cuda, id_dtype):
+def test_kernel_nan_and_empty_segments(cuda):
     data = torch.tensor([1.0, float("nan"), -3.0, INF, 2.0, -0.0, float("nan")] * 3)
-    seg = torch.tensor([0, 0, 0, 1, 2, 4, 6] * 3, dtype=id_dtype)
+    seg = torch.tensor([0, 0, 0, 1, 2, 4, 6] * 3, dtype=torch.int32)
     got = kernel.segment_min(data.to(cuda), seg.to(cuda), 8).cpu()
     want = ref.segment_min_ref(data, seg, 8)
     assert torch.equal(torch.isnan(got), torch.isnan(want))
@@ -258,22 +239,19 @@ def test_kernel_nan_and_empty_segments(cuda, id_dtype):
 
 
 @pytest.mark.cuda
-def test_kernel_counts_launches_and_live_messages(cuda):
+def test_kernel_counts_launches(cuda):
     data, seg = messages(10_000, 500, torch.int32, live=0.25, seed=5)
     data, seg = data.to(cuda), seg.to(cuda)
-    live = live_since(cuda)
     before = kernel.segment_min.launches
     for _ in range(3):
         kernel.segment_min(data, seg, 500)
     kernel.segment_min(data[:0], seg[:0], 500)  # nothing to reduce: no launch
     assert kernel.segment_min.launches == before + 3
-    assert live() == 3 * int((data != INF).sum())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", [-1, 500])
-@pytest.mark.parametrize("id_dtype", IDS)
-def test_kernel_fails_on_an_id_out_of_range(cuda, id_dtype, bad):
+def test_kernel_fails_on_an_id_out_of_range(cuda, bad):
     """A live message's id outside ``[0, n)`` fails a device-side assert,
     raised at the next wait for the device, as ``scatter_reduce_``'s index
     check does. It leaves the process's CUDA context unusable, so it runs
@@ -282,7 +260,7 @@ def test_kernel_fails_on_an_id_out_of_range(cuda, id_dtype, bad):
         "import torch\n"
         "from repro_torch.kernels.segment_min.segment_min import segment_min\n"
         f"data = torch.ones(1001, device='cuda')\n"
-        f"seg = torch.zeros(1001, dtype={id_dtype}, device='cuda')\n"
+        "seg = torch.zeros(1001, dtype=torch.int32, device='cuda')\n"
         f"seg[700] = {bad}\n"
         "segment_min(data, seg, 500)\n"
         "torch.cuda.synchronize()\n")
@@ -326,16 +304,13 @@ def test_sssp_on_card_matches_cpu(cuda):
 @pytest.mark.cuda
 def test_sssp_on_card_through_the_kernel(cuda):
     """A benchmark graph on the card: distances equal the int64 reference,
-    one kernel launch an iteration, the live count equals the reference's
-    frontier edges, and no ``scatter_reduce_`` kernel runs."""
+    one kernel launch an iteration, and no ``scatter_reduce_`` kernel runs."""
     g = gbench_graph("kron25", 14, cuda)
     source = int(torch.argmax(g.indptr[1:] - g.indptr[:-1]))
     before = kernel.segment_min.launches
     dist, want, frontier, stats = sssp_against_reference(g, source)
-    unreached = want == torch.iinfo(want.dtype).max
-    assert torch.equal(dist, torch.where(unreached, INF, want.to(torch.float32)))
+    assert torch.equal(dist, want)
     assert kernel.segment_min.launches - before == stats["iters"] == len(frontier)
-    assert stats["live_messages"] == sum(f for _, f in frontier)
     csr = DeviceCSR(indptr=g.indptr, indices=g.indices, dst=g.dst, weights=g.weights,
                     num_nodes=g.num_nodes)
     names = device_kernels(lambda: apps.sssp(csr, source))
