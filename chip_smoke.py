@@ -1493,7 +1493,7 @@ def run_policies(qs_graph) -> None:
 def run_real_suite(dev, g2) -> tuple[int, dict]:
     """Phase 9 (c): PRD, SSSP, BC and Radii at real size on ``g2`` (the
     ``lj`` graph of phase 5). Returns K1's launches in one PRD run through
-    K1, and the segment-min kernel's numbers on SSSP from 0."""
+    K1, and the relaxation kernels' numbers (``relax_numbers``)."""
     import statistics
 
     import torch
@@ -1502,7 +1502,7 @@ def run_real_suite(dev, g2) -> tuple[int, dict]:
     from repro_torch.graph.csr import transpose
     from repro_torch.graph.generate import add_uniform_weights
     from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
-    from repro_torch.kernels.segment_min.segment_min import segment_min
+    from repro_torch.kernels.segment_min.relax import relax_min
     from repro_torch.kernels.segment_sum.segment_sum import segment_sum
 
     t0 = time.perf_counter()
@@ -1516,25 +1516,25 @@ def run_real_suite(dev, g2) -> tuple[int, dict]:
     d_hops = dataclasses.replace(d_out, weights=None)  # the same edges, unit weights
 
     def run(label, fn, sssp=False, prd=False):
-        """One app run; SSSP's must launch the segment-min kernel once an
-        iteration, PRD's pull the segment-sum kernel once an iteration; the
-        others launch neither."""
+        """One app run; SSSP's must launch the relaxation once an iteration,
+        PRD's pull the segment-sum kernel once an iteration; the others
+        launch neither."""
         stats = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        hot_gather_hot_part.launches = segment_min.launches = segment_sum.launches = 0
+        hot_gather_hot_part.launches = relax_min.launches = segment_sum.launches = 0
         t0 = time.perf_counter()
         res = fn(stats)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        sm_launches, ss_launches = segment_min.launches, segment_sum.launches
+        rx_launches, ss_launches = relax_min.launches, segment_sum.launches
         peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
         print(f"real-size {label}: {ms:.3f} ms, {stats['iters']} iterations "
               f"({ms / max(stats['iters'], 1):.4f} ms each), peak device memory of the graphs "
               f"and the app {peak:.3f} GiB, K1 launches {hot_gather_hot_part.launches}, "
-              f"segment-min launches {sm_launches}, segment-sum launches {ss_launches}")
-        if sm_launches != (stats["iters"] if sssp else 0):
-            fail(f"real-size {label}: {sm_launches} segment-min launches for "
+              f"relaxation launches {rx_launches}, segment-sum launches {ss_launches}")
+        if rx_launches != (stats["iters"] if sssp else 0):
+            fail(f"real-size {label}: {rx_launches} relaxation launches for "
                  f"{stats['iters']} iterations")
         if ss_launches != (stats["iters"] if prd else 0):
             fail(f"real-size {label}: {ss_launches} segment-sum launches for "
@@ -1568,7 +1568,7 @@ def run_real_suite(dev, g2) -> tuple[int, dict]:
     print(f"real-size PRD: K1 vs plain gather max rel diff {rel:.3e}, ranks finite")
 
     # SSSP from 0: no edge relaxes any further
-    dist, sssp_stats = run("SSSP from 0", lambda st: apps.sssp(d_out, 0, stats=st), sssp=True)[:2]
+    dist = run("SSSP from 0", lambda st: apps.sssp(d_out, 0, stats=st), sssp=True)[0]
     src, dst = d_out.dst.long(), d_out.indices.long()
     d_src = dist[src]
     relaxes = int((torch.isfinite(d_src) & (dist[dst] > d_src + d_out.weights)).sum())
@@ -1604,75 +1604,151 @@ def run_real_suite(dev, g2) -> tuple[int, dict]:
         fail("real-size Radii: a radius below its BFS level")
     if len(prd_launches) != 1:
         fail(f"real-size PRD: K1 launches differ between runs: {prd_launches}")
-    del src, dst, hops, sigma, level, radii, mask
-    sm = segment_min_numbers(d_out, 0, dist, sssp_stats)
+    del src, dst, hops, sigma, level, radii, mask, dist, dg, d_out, d_hops
+    sm = relax_numbers(dev)
     return prd_launches.pop(), sm
 
 
-def segment_min_numbers(g_out, source: int, dist, stats: dict) -> dict:
-    """Replay ``apps.sssp(g_out, source)``'s iterations: reduce each
-    iteration's candidates with the segment-min wrapper over the int32
-    targets, as the app does, and hold it bit for bit against
-    ``ref.segment_min_ref``; count its live messages, the candidates not
-    +inf. Times, per launch and as the mean over the
-    iterations: the wrapper (``ms``, ``device_ms``, ``host_us``), the
-    plain version (``plain_ms``), and ``scatter_reduce_`` amin over int64
-    targets widened once, what the port ran before (``library_ms``,
-    ``library_device_ms``); the bound reads each message once, a live
-    message's int32 target and ``out`` once (4 E + 4 live + 4 N bytes).
-    The replay must end where the app's run did (``dist``, ``stats``)."""
+def relax_numbers(dev) -> dict:
+    """SSSP on the benchmark's kron graph at ``lj``'s scale, from the SSSP
+    cells' first source, whose frontiers, as the cells', reach a large
+    share of the edges: one run of ``apps.sssp`` (one relaxation an
+    iteration), then a replay of its iterations through the relaxation
+    wrapper that holds each iteration's distances and frontier bit for bit
+    against the relaxation's plain version and its settling
+    (``ref.relax_min_ref``, ``ref.settle_ref``) from the same state. The
+    chain the port ran before it (``old_chain``: the gathers of ``dist``
+    and ``active`` through int64 sources, the add, ``where`` and the
+    segment-min kernel) must give the plain relaxation's minima, and its
+    segment-min kernel ``ref.segment_min_ref``'s. Times, per launch and as
+    the mean over the iterations, each relaxation from the iteration's own state
+    (restored before each run): the wrapper (``ms`` by CUDA events,
+    ``device_ms``, its kernels' time by torch.profiler; ``host_us`` of a
+    launch over no active row), its plain version (``plain_ms``) and the
+    old chain (``library_ms``, ``library_device_ms``). The bound reads the
+    active rows' edges (8 B each: target and weight), their offsets (8 B a
+    row) and 9 B a vertex (8·F + 8·A + 9N bytes). The replay must end where
+    the app's run did."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
+    from gbench import graphs, spec
+    from gbench.apps import sssp as sssp_app
+    from repro_torch import apps
+    from repro_torch.graph.csr import DeviceCSR, out_degree_sum
     from repro_torch.kernels.segment_min import ref
+    from repro_torch.kernels.segment_min.relax import relax_min
     from repro_torch.kernels.segment_min.segment_min import segment_min
 
+    g = graphs.make({**spec.config(spec.benchmark(), "kron25"), "scale": REAL_SCALE},
+                    2**31 + 11, dev, weighted=True)
+    source = sssp_app.pick_sources(g, 1, spec.traffic("sssp")["source_seed"])[0]
+    g_out = DeviceCSR(indptr=g.indptr, indices=g.indices, dst=g.dst, weights=g.weights,
+                      num_nodes=g.num_nodes)
+    stats = {}
+    apps.sssp(g_out, source, max_iters=1)  # warm-up
+    relax_min.launches = 0
+    dist = apps.sssp(g_out, source, stats=stats)
+    if relax_min.launches != stats["iters"]:
+        fail(f"SSSP on kron {REAL_SCALE}: {relax_min.launches} relaxation launches for "
+             f"{stats['iters']} iterations")
     n, e = g_out.num_nodes, g_out.indices.shape[0]
-    src_of_edge, tgt, tgt64 = g_out.dst.long(), g_out.indices, g_out.indices.long()
+    src_of_edge, tgt, w = g_out.dst.long(), g_out.indices, g_out.weights
+    reps = 5
 
-    def library(c):
-        out = torch.full((n,), float("inf"), device=c.device)
-        return out.scatter_reduce_(0, tgt64, c, "amin", include_self=True)
+    def messages(d, a):
+        return torch.where(a[src_of_edge], d[src_of_edge] + w, float("inf"))
 
-    keys = ["ms", "device_ms", "host_us", "plain_ms", "library_ms", "library_device_ms"]
-    parts = {key: [] for key in keys}
-    best_dist = torch.full((n,), float("inf"), device=tgt.device)
-    best_dist[source] = 0.0
-    active = torch.zeros(n, dtype=torch.bool, device=tgt.device)
+    def old_chain(d, a):
+        best = segment_min(messages(d, a), tgt, n)
+        return best < d, torch.minimum(d, best)
+
+    def same(x, y):
+        return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+    def state():  # keys at +inf, the flag up, no edge counted
+        return (torch.full((n,), float("inf"), device=dev).view(torch.int32),
+                torch.ones(1, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev))
+
+    keys, flag, relaxed = state()
+    scratch = state()  # for the timed runs: each leaves its keys at +inf again
+
+    parts = {key: [] for key in ("ms", "device_ms", "host_us", "plain_ms", "library_ms",
+                                 "library_device_ms")}
+    cur = torch.full((n,), float("inf"), device=dev)
+    cur[source] = 0.0
+    active = torch.zeros(n, dtype=torch.bool, device=dev)
     active[source] = True
-    iters = live = 0
-    while bool(active.any()):
-        cand = torch.where(active[src_of_edge], best_dist[src_of_edge] + g_out.weights,
-                           float("inf"))
-        best = segment_min(cand, tgt, n)
-        if not torch.equal(best.view(torch.int32), ref.segment_min_ref(cand, tgt, n).view(
-                torch.int32)):
-            fail(f"segment-min on real-size SSSP, iteration {iters}: differs from its plain "
-                 f"version")
-        for key, v in timed("", lambda: segment_min(cand, tgt, n)).items():
-            parts[key].append(v)
-        parts["plain_ms"].append(time_ms(lambda: ref.segment_min_ref(cand, tgt, n)))
-        parts["library_ms"].append(time_ms(lambda: library(cand)))
-        parts["library_device_ms"].append(device_ms(lambda: library(cand)))
-        live += int((cand != float("inf")).sum())
-        active = best < best_dist
-        best_dist = torch.minimum(best_dist, best)
+    d_t, a_t = torch.empty_like(cur), torch.empty_like(active)
+    iters = edges = rows = 0
+    while bool(flag):
+        d0, a0 = cur.clone(), active.clone()
+        best = ref.relax_min_ref(g_out.indptr, tgt, w, d0, a0)
+        msgs = messages(d0, a0)
+        chain_best = segment_min(msgs, tgt, n)
+        if not (same(chain_best, ref.segment_min_ref(msgs, tgt, n)) and same(chain_best, best)):
+            fail(f"SSSP on kron {REAL_SCALE}, iteration {iters}: the segment-min kernel "
+                 f"differs from its plain version, or the gather, where and segment-min "
+                 f"chain from the plain relaxation")
+        want_dist, want_active = d0.clone(), a0.clone()
+        ref.settle_ref(best, want_dist, want_active)
+        del best, msgs, chain_best
+        edges += int(out_degree_sum(g_out.indptr, a0))
+        rows += int(a0.sum())
+        relax_min(g_out.indptr, tgt, w, cur, active, keys, flag, relaxed)
+        if not (torch.equal(active, want_active) and same(cur, want_dist)):
+            fail(f"relaxation on kron {REAL_SCALE}, iteration {iters}: differs from its plain "
+                 f"version and settling")
+        total = 0.0
+        for _ in range(reps):  # events around the relaxation alone
+            d_t.copy_(d0)
+            a_t.copy_(a0)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            relax_min(g_out.indptr, tgt, w, d_t, a_t, *scratch)
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        parts["ms"].append(total / reps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            spin_pad()
+            for _ in range(reps):
+                d_t.copy_(d0)
+                a_t.copy_(a0)
+                relax_min(g_out.indptr, tgt, w, d_t, a_t, *scratch)
+            spin_pad()
+        ours = [ev for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and ("relax_" in ev.key or "settle_kernel" in ev.key)]
+        busy = sum(ev.self_device_time_total for ev in ours)
+        parts["device_ms"].append(busy / 1e3 / reps if busy > 0 else None)
+        a_t.zero_()
+        parts["host_us"].append(host_us(
+            lambda: relax_min(g_out.indptr, tgt, w, d_t, a_t, *scratch), 200))
+        parts["plain_ms"].append(time_ms(lambda: ref.relax_min_ref(g_out.indptr, tgt, w, d0, a0),
+                                         reps))
+        parts["library_ms"].append(time_ms(lambda: old_chain(d0, a0), reps))
+        parts["library_device_ms"].append(device_ms(lambda: old_chain(d0, a0), reps))
         iters += 1
-        del cand, best
-    if iters != stats["iters"] or not torch.equal(best_dist.view(torch.int32),
-                                                  dist.view(torch.int32)):
-        fail(f"segment-min replay of real-size SSSP: {iters} iterations against the app's "
-             f"{stats['iters']}, distances equal "
-             f"{torch.equal(best_dist.view(torch.int32), dist.view(torch.int32))}")
+        del d0, a0, want_active, want_dist
+    if (iters != stats["iters"] or not int(relaxed) == edges == stats["edges_relaxed"]
+            or not same(cur, dist)):
+        fail(f"relaxation replay on kron {REAL_SCALE}: {iters} iterations against the app's "
+             f"{stats['iters']}, edges {int(relaxed)} / {edges} against "
+             f"{stats['edges_relaxed']}, distances equal "
+             f"{same(cur, dist)}")
     res = {key: None if None in vals else sum(vals) / iters for key, vals in parts.items()}
-    res["bound_ms"], res["bound_by"] = bound((4 * e * iters + 4 * live + 4 * n * iters) / iters)
-    res.update(max_abs_err=0.0, launches=iters, live_share=live / (e * iters),
-               shape=f"{iters} x (E={e} float32 messages, int32 targets) into N={n}")
-    print(f"segment-min timing on real-size SSSP ({res['shape']}, {res['live_share']:.4f} of "
-          f"messages live), per launch: {res['ms']:.4f} ms (device {fmt_ms(res['device_ms'])}, "
-          f"host {res['host_us']:.2f} us/call), plain {res['plain_ms']:.4f} ms, bound "
-          f"{res['bound_ms']:.4f} ms; scatter_reduce_ amin over int64 targets "
-          f"{res['library_ms']:.4f} ms (device {fmt_ms(res['library_device_ms'])}); every "
-          f"iteration bit for bit")
+    res["bound_ms"], res["bound_by"] = bound((8 * edges + 8 * rows + 9 * n * iters) / iters)
+    res.update(max_abs_err=0.0, launches=iters, frontier_share=edges / (e * iters),
+               shape=f"{iters} x (out-CSR of E={e} int32 targets, float32 weights) into N={n}")
+    print(f"relaxation timing on kron {REAL_SCALE} SSSP from {source} ({res['shape']}, "
+          f"{res['frontier_share']:.4f} of edges out of active rows), per launch: "
+          f"{res['ms']:.4f} ms (device {fmt_ms(res['device_ms'])}, host {res['host_us']:.2f} us/call), plain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms; gather, where and "
+          f"segment-min chain {res['library_ms']:.4f} ms (device "
+          f"{fmt_ms(res['library_device_ms'])}); every iteration bit for bit with the plain "
+          f"relaxation, and the chain's segment min with its plain version")
     return res
 
 
@@ -2915,16 +2991,17 @@ def run_gateway(dev, params) -> dict:
 # phase 14: LM serving (nn.transformer, LMServeEngine, lm_loop, --engine lm)
 # ---------------------------------------------------------------------------
 def kernel_counters() -> tuple:
-    """K1's, K2's, K3's, the segment-min and the segment-sum kernel's
-    wrappers: each counts its launches on the card."""
+    """K1's, K2's, K3's, the segment-min, the relaxation's and the
+    segment-sum kernel's wrappers: each counts its launches on the card."""
     from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
     from repro_torch.kernels.hot_gather.hot_gather import (hot_gather_hot_part,
                                                            hot_gather_segment_sum)
+    from repro_torch.kernels.segment_min.relax import relax_min
     from repro_torch.kernels.segment_min.segment_min import segment_min
     from repro_torch.kernels.segment_sum.segment_sum import segment_sum
 
     return (hot_gather_hot_part, hot_gather_segment_sum, hot_bag_hot_part, segment_min,
-            segment_sum)
+            relax_min, segment_sum)
 
 
 def lm_close(label: str, got, want, tol: dict) -> float:
@@ -4457,9 +4534,10 @@ def main(argv=None) -> int:
         dict(name="hot_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
              replaces="src/repro/kernels/embedding_bag/embedding_bag.py:20",
              path="mind bag (serve_bulk)", **k3),
-        dict(name="segment_min", route="cuda", source="src/repro_torch/csrc/segment_min.cu",
-             replaces="none: the JAX package's segment_min is XLA's jax.ops.segment_min",
-             path="real-size sssp", **sm),
+        dict(name="relax_min", route="cuda", source="src/repro_torch/csrc/segment_min.cu",
+             replaces="none: the JAX package relaxes with a gather, where and XLA's "
+                      "jax.ops.segment_min",
+             path=f"sssp on kron {REAL_SCALE}", **sm),
     ]
     # the gateway after the other paths' kernel timing: its busy share is
     # read under torch.profiler, as training's is

@@ -79,6 +79,12 @@ class DeviceCSR:
     num_nodes: int
 
 
+def out_degree_sum(indptr: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """The edges out of the active rows of a CSR, as a 0-d int64 tensor (no
+    host read: the mask is applied with ``where``)."""
+    return torch.where(active, indptr[1:] - indptr[:-1], 0).sum(dtype=torch.int64)
+
+
 def from_edges(
     src: np.ndarray,
     dst: np.ndarray,

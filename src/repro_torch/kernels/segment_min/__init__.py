@@ -1,1 +1,2 @@
-"""Segment minimum of float32 messages: SSSP's relaxation on the card."""
+"""Segment minimum of float32 messages, and SSSP's relaxation over an
+out-CSR, on the card."""

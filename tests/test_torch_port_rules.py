@@ -44,7 +44,8 @@ FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
     ROOT / "scripts" / "torch_profile_graph_suite.py", ROOT / "scripts" / "torch_profile_gnn_serve.py",
     ROOT / "scripts" / "k1_d1_layouts.cu", ROOT / "scripts" / "k2_k3_times.py",
     ROOT / "scripts" / "k3_layouts.py", ROOT / "scripts" / "k3_layouts.cu",
-    ROOT / "scripts" / "index_add_pad_runs.py", ROOT / "scripts" / "grasp_step_noise.py"],
+    ROOT / "scripts" / "index_add_pad_runs.py", ROOT / "scripts" / "grasp_step_noise.py",
+    ROOT / "scripts" / "relax_times.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
     text = path.read_text()
