@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only 16     # the set-up, then phase 16 alone
     python3 chip_smoke.py --only 18     # the segment sum at the PRD cells' shapes
+    python3 chip_smoke.py --only 19     # GAT's attention at the kron21.gat cell's shapes
 
 
 Phases, each of which must pass:
@@ -212,7 +213,17 @@ Phases, each of which must pass:
      messages, two launches bit for bit,
      every row within the kernel's error bound of its float64 sum and the
      plain version within its own; then its times beside its byte bound,
-     the plain version and index_add_ over the CSR's dst.
+     the plain version and index_add_ over the CSR's dst;
+ 19. GAT inference over a whole graph: the benchmark cell kron21.gat's
+     forward (gbench/apps/gat.py: the kron21 graph, GAT at the
+     ogbn-products widths, features and weights from one seed) through
+     nn.gnn.apply's CSR route: gat_attend launched once a layer (3), finite
+     logits, the forward's seconds and peak memory; then a second forward
+     whose every gat_attend launch is held, on its own card tensors,
+     against ref.gat_attend_ref in float64 within ref.error_bound (the card
+     tests' bound) and relaunched bit for bit; then the kernel's times at
+     both row widths (2 KB and 752 B) beside its byte bound and the plain
+     version.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
@@ -2991,9 +3002,11 @@ def run_gateway(dev, params) -> dict:
 # phase 14: LM serving (nn.transformer, LMServeEngine, lm_loop, --engine lm)
 # ---------------------------------------------------------------------------
 def kernel_counters() -> tuple:
-    """K1's, K2's, K3's, the segment-min, the relaxation's and the
-    segment-sum kernel's wrappers: each counts its launches on the card."""
+    """K1's, K2's, K3's, the segment-min, the relaxation's, the segment-sum
+    and the GAT attention kernel's wrappers: each counts its launches on the
+    card."""
     from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
+    from repro_torch.kernels.gat_attend.gat_attend import gat_attend
     from repro_torch.kernels.hot_gather.hot_gather import (hot_gather_hot_part,
                                                            hot_gather_segment_sum)
     from repro_torch.kernels.segment_min.relax import relax_min
@@ -3001,7 +3014,7 @@ def kernel_counters() -> tuple:
     from repro_torch.kernels.segment_sum.segment_sum import segment_sum
 
     return (hot_gather_hot_part, hot_gather_segment_sum, hot_bag_hot_part, segment_min,
-            relax_min, segment_sum)
+            relax_min, segment_sum, gat_attend)
 
 
 def lm_close(label: str, got, want, tol: dict) -> float:
@@ -4412,6 +4425,136 @@ def run_segment_sum(dev) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 19: GAT inference over a whole graph, the kron21.gat cell's forward
+
+GAT_CELL = "kron21.gat"
+GAT_SEED = 2**31 + 1919      # the graph's labels, then the features and weights
+GAT_CHECK_ITEMS = 1 << 20    # items a block of the float64 plain version: 4.3 GB of 2 KB rows
+
+
+def gat_attend_bytes(n: int, e: int, heads: int, width: int, out_width: int) -> int:
+    """The least bytes of one gat_attend call: the offsets, the ids, both
+    scores and each row of z read once, each output row written once."""
+    return 4 * (n + 1) + 4 * e + 8 * heads * n + 4 * width * n + 4 * out_width * n
+
+
+def run_gat_whole_graph(dev) -> list:
+    """Phase 19: GAT at the ogbn-products widths over the kron21 graph, the
+    forward of the benchmark cell kron21.gat (``gbench/apps/gat.py``: the
+    cell's graph, features, weights and inputs from one seed), through
+    nn.gnn.apply's CSR route. ``gat_attend.launches`` is set to 0 just
+    before one forward and must be n_layers just after it; the logits are
+    finite. In a second forward every launch is held, on its own card
+    tensors and before the layer's update writes over its output, against
+    ``ref.gat_attend_ref`` in float64 within ``ref.error_bound`` (the card
+    tests' bound), and launched again bit for bit. Returns the kernel's
+    entries at its two row widths, timed on the inputs of the first layer
+    (2 KB rows, as the second) and the last (752 B)."""
+    import torch
+
+    from gbench import graphs, spec
+    from gbench.apps import gat as gat_app
+    from repro_torch.kernels.gat_attend import ref
+    from repro_torch.kernels.gat_attend.gat_attend import gat_attend
+    from repro_torch.nn import gnn
+
+    bench = spec.benchmark()
+    cell = spec.cell(bench, GAT_CELL)
+    t0 = time.perf_counter()
+    g = graphs.make(spec.config(bench, cell["config"]), GAT_SEED, dev, weighted=False)
+    app = gat_app.App(g, spec.traffic(cell["traffic"]), dev)
+    torch.cuda.synchronize()
+    n, e, layers = g.num_nodes, g.num_edges, app.cfg.n_layers
+    print(f"GAT graph {cell['config']} (seed {GAT_SEED}): N {n}, E {e} "
+          f"({time.perf_counter() - t0:.1f} s); {app.describe()}")
+
+    app.warm_up()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gat_attend.launches = 0
+    t0 = time.perf_counter()
+    logits = app.trial(0, {})
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    launches = gat_attend.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"GAT forward: {forward_s:.4f} s, logits {tuple(logits.shape)}, gat_attend launches "
+          f"{launches} (want {layers}), peak {peak:.4f} GiB")
+    if launches != layers:
+        fail(f"GAT: gat_attend launched {launches} times in a {layers}-layer forward")
+    if logits.shape != (n, app.cfg.d_out) or not torch.isfinite(logits).all():
+        fail("GAT: logits not finite or of the wrong shape")
+    del logits
+
+    entries, seen = [], []
+
+    def checking(indptr, src, z, s_src, s_dst, hot_size, negative_slope, mean):
+        def launch():
+            return gat_attend(indptr, src, z, s_src, s_dst, hot_size, negative_slope, mean)
+
+        out = launch()
+        layer = len(seen)
+        seen.append(hot_size)
+        heads, width = s_src.shape[1], z.shape[1]
+        path = f"kron21.gat, {4 * width} B rows"
+        again = launch()
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+            fail(f"gat_attend on {path}: two launches on layer {layer}'s inputs differ")
+        del again
+        err = ref.gat_attend_ref(indptr, src, z.double(), s_src.double(), s_dst.double(),
+                                 negative_slope, mean)
+        err.sub_(out).abs_()
+        limit = ref.error_bound(indptr, src, z, s_src, s_dst, negative_slope, mean)
+        ok = bool((err <= limit).all()) and bool(torch.isfinite(out).all())
+        worst = float(err.div_(limit).max())
+        del err, limit
+        print(f"gat_attend on {path}, layer {layer} (hot_size {hot_size}, "
+              f"{'averaged' if mean else 'concatenated'} heads): within ref.error_bound of "
+              f"the float64 plain version {ok} (largest error over its bound {worst:.4e}); "
+              f"two launches bit for bit")
+        if not ok:
+            fail(f"gat_attend on {path}, layer {layer}: outside its error bound")
+        if layer not in (0, layers - 1):
+            return out
+        count = layers - 1 if layer == 0 else 1
+        res = timed("", launch, reps=10, calls=20)
+        ref.BLOCK_ITEMS = block_items
+        try:
+            res["plain_ms"] = time_ms(lambda: ref.gat_attend_ref(
+                indptr, src, z, s_src, s_dst, negative_slope, mean), reps=3, warmup=1)
+        finally:
+            ref.BLOCK_ITEMS = GAT_CHECK_ITEMS
+        res["bound_ms"], res["bound_by"] = bound(gat_attend_bytes(n, e, heads, width,
+                                                                  out.shape[1]))
+        res.update(max_err_over_bound=worst, launches=count, hot_size=hot_size,
+                   shape=f"H={heads} x C={width // heads} float32 rows of z over N={n}, "
+                         f"E={e}, {count} a forward")
+        print(f"gat_attend on {path} ({res['shape']}), per launch: {res['ms']:.4f} ms "
+              f"(device {fmt_ms(res['device_ms'])}, host {res['host_us']:.2f} us/call), plain "
+              f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms")
+        entries.append(dict(name="gat_attend", route="cuda",
+                            source="src/repro_torch/csrc/gat_attend.cu",
+                            replaces="none: the JAX package has no GAT", path=path, **res))
+        return out
+
+    block_items = ref.BLOCK_ITEMS
+    ref.BLOCK_ITEMS = GAT_CHECK_ITEMS
+    gnn.gat_attend = checking
+    try:
+        logits = app.trial(0, {})
+        torch.cuda.synchronize()
+    finally:
+        gnn.gat_attend = gat_attend
+        ref.BLOCK_ITEMS = block_items
+    if len(seen) != layers or not torch.isfinite(logits).all():
+        fail(f"GAT: the checked forward made {len(seen)} gat_attend calls for {layers} layers")
+    del logits, app, g
+    torch.cuda.empty_cache()
+    return entries
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -4421,15 +4564,17 @@ def phase(label: str, fn, *args):
 
 
 # phases that ``--only`` runs alone after the set-up (phase 1 is not needed:
-# 14-16 launch no kernel of the port, and 17 and 18 build theirs at their
-# first launch; 17 and 18 print their own kernels lines)
+# 14-16 launch no kernel of the port, and 17-19 build theirs at their first
+# launch; 17-19 print their own kernels lines)
 ONLY = {"14": lambda dev: phase("14 (LM serving)", run_lm_serving, dev),
         "15": lambda dev: phase("15 (LM training)", run_lm_training, dev),
         "16": lambda dev: phase("16 (the mesh and sharding layer)", run_mesh, dev),
         "17": lambda dev: print(json.dumps({"kernels": phase(
             "17 (PNA over a whole graph)", run_pna_whole_graph, dev)})),
         "18": lambda dev: print(json.dumps({"kernels": phase(
-            "18 (the segment sum at the PRD cells' shapes)", run_segment_sum, dev)}))}
+            "18 (the segment sum at the PRD cells' shapes)", run_segment_sum, dev)})),
+        "19": lambda dev: print(json.dumps({"kernels": phase(
+            "19 (GAT over a whole graph)", run_gat_whole_graph, dev)}))}
 
 
 def main(argv=None) -> int:
@@ -4437,7 +4582,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one card and check it.")
     ap.add_argument("--only", default="", help=f"comma-separated phases of {sorted(ONLY)} "
-                    "to run alone (no final result line; a kernels line from 17 only)")
+                    "to run alone (no final result line; kernels lines from 17-19 only)")
     only = [x for x in ap.parse_args(argv).only.split(",") if x]
     if set(only) - set(ONLY):
         ap.error(f"--only takes phases of {sorted(ONLY)}")
@@ -4549,6 +4694,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels[7:7] = phase("17 (PNA over a whole graph)", run_pna_whole_graph, dev)
     kernels += phase("18 (the segment sum at the PRD cells' shapes)", run_segment_sum, dev)
+    kernels += phase("19 (GAT over a whole graph)", run_gat_whole_graph, dev)
     if any(k["launches"] < 1 for k in kernels):
         fail("a kernel's path did not launch it")
     # training runs after the kernels' timing: after its profiled fit,

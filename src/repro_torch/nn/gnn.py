@@ -1,4 +1,4 @@
-"""GNN architectures: GIN, PNA, EGNN, NequIP-lite (forward).
+"""GNN architectures: GIN, PNA, EGNN, NequIP-lite, GAT (forward).
 
 Message passing is a gather (``index_select`` over edge endpoint indices)
 and a segment reduction over ``dst`` (``index_add_``; PNA's max and min by
@@ -22,7 +22,9 @@ PNA also takes a whole graph as a destination-sorted CSR: ``x``,
 ``indptr`` (N + 1,), ``src`` and ``dst`` (E,) int32 sorted by
 destination, and no ``emask``. That batch takes a blocked inference path
 that works one block of destination rows at a time, so that no tensor
-spans all E edges (``_pna_blocked``).
+spans all E edges (``_pna_blocked``). GAT (``configs/gat.py``, not in the
+registry) takes the same CSR batch through one hand-written attention pass
+a layer (``_gat_csr``).
 
 Parameters are nested dicts and lists of tensors, with ``None`` where the
 JAX package has one (GIN's ``eps`` when it is not learnable, NequIP's
@@ -46,6 +48,8 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.core.plan import make_plan
 from repro_torch.dist.sharding import (LocalRows, LocalSegmentExtreme, local_edge_map,
                                        local_segment_sum)
+from repro_torch.kernels.gat_attend import ops as gat_ops
+from repro_torch.kernels.gat_attend.gat_attend import gat_attend
 from repro_torch.kernels.hot_gather import ops as hot_ops
 from repro_torch.nn import layers as L
 from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
@@ -535,11 +539,112 @@ def nequip_apply(params, cfg: GNNConfig, batch: Dict):
     return energy
 
 
+# ---------------------------------------------------------------------------
+# GAT (Veličković et al. 2018) — multi-head edge-softmax attention
+# ---------------------------------------------------------------------------
+def gat_init(gen: torch.Generator, cfg, d_feat: int):
+    """PyG's ``GATConv`` layout a layer, with a linear skip: ``lin`` (d_in,
+    H·C) without a bias, ``att_src`` and ``att_dst`` (H, C), ``bias`` (H·C,
+    or C on the last layer, whose heads are averaged) and ``skip`` (d_in,
+    width) with its bias. Weights N(0, 1/d_in), attention vectors N(0,
+    1/C), biases N(0, 0.1²)."""
+    layers, d_in = [], d_feat
+    for i in range(cfg.n_layers):
+        last = i == cfg.n_layers - 1
+        c = cfg.d_out if last else cfg.d_head
+        width = c if last else cfg.heads * c
+        layers.append({
+            "lin": L.dense_init(gen, d_in, cfg.heads * c),
+            "att_src": L.normal(gen, (cfg.heads, c), 1 / math.sqrt(c)),
+            "att_dst": L.normal(gen, (cfg.heads, c), 1 / math.sqrt(c)),
+            "bias": L.normal(gen, (width,), 0.1),
+            "skip": {**L.dense_init(gen, d_in, width), "b": L.normal(gen, (width,), 0.1)},
+        })
+        d_in = width
+    return {"layers": layers}
+
+
+def gat_apply(params, cfg, batch: Dict):
+    """GAT's node logits (N, d_out). A batch with a destination-sorted CSR
+    (``indptr``) takes the inference route through the attention kernel,
+    ``_gat_csr``; a batch dict (``src``, ``dst``, ``emask``) is plain torch
+    operations, which autograd can differentiate."""
+    if "indptr" in batch:
+        return _gat_csr(params, cfg, batch)
+    dev = _device_of(params)
+    h = _get(batch, "x", dev)
+    src, dst, emask = _edges(batch, dev)
+    n = h.shape[0]
+    if cfg.self_loops:
+        own = torch.arange(n, device=dev)
+        src, dst = torch.cat([src, own]), torch.cat([dst, own])
+        emask = torch.cat([emask, torch.ones(n, dtype=torch.bool, device=dev)])
+    for i, lp in enumerate(params["layers"]):
+        last = i == len(params["layers"]) - 1
+        heads, c = lp["att_src"].shape
+        z = L.dense(lp["lin"], h, torch.float32).view(n, heads, c)
+        e = F.leaky_relu(_rows((z * lp["att_src"]).sum(-1), src)
+                         + _rows((z * lp["att_dst"]).sum(-1), dst), cfg.negative_slope)
+        e = torch.where(emask[:, None], e, -math.inf)
+        top = e.new_full((n, heads), -math.inf).scatter_reduce(
+            0, dst[:, None].expand_as(e), e, "amax", include_self=True).detach()
+        p = torch.where(emask[:, None], torch.exp(e - _rows(top, dst)), 0.0)
+        den = _seg_sum(p, dst, n)
+        o = _seg_sum(_rows(z, src) * p[:, :, None], dst, n) / torch.where(
+            den > 0, den, 1.0)[:, :, None]  # a row without items sums to 0, as PyG's
+        o = o.mean(1) if last else o.reshape(n, heads * c)
+        h = o + L.dense(lp["skip"], h, torch.float32) + (lp["bias"] + lp["skip"]["b"])
+        h = h if last else F.elu(h)
+    return h
+
+
+def _gat_csr(params, cfg, batch: Dict):
+    """GAT inference over a whole graph. The batch holds ``x`` (N, F) and
+    the in-CSR: ``indptr`` (N + 1,) and ``src`` (E,), int32, sorted by
+    destination (``gat_attend`` checks them). Each layer is one SGEMM for its rows, scores and
+    skip (``gat_ops.project``), one ``gat_attend`` call over the CSR and
+    its self loops (rows below ``make_plan(N, 4·H·C).hot_size`` held in L2
+    where ``cfg.grasp`` is set), then the bias, the skip and ELU, in place.
+    No tensor spans the E edges. Inference only: a call that autograd
+    would record raises."""
+    dev = _device_of(params)
+    h = _get(batch, "x", dev)
+    if torch.is_grad_enabled() and (h.requires_grad or any(
+            t.requires_grad for t in tree_leaves(params) if t is not None)):
+        raise RuntimeError("the GAT forward over a CSR (a batch with indptr) is inference only: "
+                           "run it under torch.no_grad(), or train on a batch dict with "
+                           "src, dst and emask")
+    if not cfg.self_loops:
+        raise ValueError("the GAT attention kernel adds a self loop to every row: "
+                         "cfg.self_loops must be set on a batch with indptr")
+    with torch.no_grad():
+        indptr, src = _get(batch, "indptr", dev), _get(batch, "src", dev)
+        n = h.shape[0]
+        for i, lp in enumerate(params["layers"]):
+            last = i == len(params["layers"]) - 1
+            heads, c = lp["att_src"].shape
+            with spans.span("gnn.transform"):
+                z, s_src, s_dst, skip = gat_ops.project(h, lp)
+            del h
+            hot_size = make_plan(n, 4 * heads * c).hot_size if cfg.grasp else 0
+            with spans.span("gnn.attend"):
+                h = gat_attend(indptr, src, z, s_src, s_dst, hot_size, cfg.negative_slope,
+                               mean=last)
+            with spans.span("gnn.update"):
+                h += skip
+                h += lp["bias"] + lp["skip"]["b"]
+                if not last:
+                    F.elu(h, inplace=True)
+            del z, s_src, s_dst, skip
+        return h
+
+
 KINDS = {
     "gin": (gin_init, gin_apply),
     "pna": (pna_init, pna_apply),
     "egnn": (egnn_init, egnn_apply),
     "nequip": (nequip_init, nequip_apply),
+    "gat": (gat_init, gat_apply),
 }
 
 

@@ -594,6 +594,215 @@ def test_pna_reference_bfloat16_fails_the_cells_limit(cuda):
     assert program < limit < control
 
 
+# ---------------------------------------------------------------------------
+# GAT's attention kernel (csrc/gat_attend.cu) and GAT's CSR route
+# ---------------------------------------------------------------------------
+def gat_inputs(indptr, heads, c, seed=0, score_scale=1.0, offset=0, pad=0):
+    """``(big, z, s_src, s_dst)`` on the CPU: z and the scores as views into
+    one (n, H·C + 2H + pad + offset) matrix, as ``gat_ops.project`` gives
+    them; ``offset`` moves z off 16-byte alignment, ``pad`` its row stride
+    off a multiple of 4 floats."""
+    n = indptr.shape[0] - 1
+    w = heads * c
+    gen = torch.Generator().manual_seed(seed)
+    big = torch.randn(n, offset + w + 2 * heads + pad, generator=gen)
+    big[:, offset + w:offset + w + 2 * heads] *= score_scale
+    return big, *gat_views(big, heads, c, offset)
+
+
+def gat_views(big, heads, c, offset=0):
+    w = heads * c
+    return (big[:, offset:offset + w], big[:, offset + w:offset + w + heads],
+            big[:, offset + w + heads:offset + w + 2 * heads])
+
+
+def gat_bound(indptr, src, z, s_src, s_dst, mean):
+    """The kernel's error bound against a float64 sum (``ref.error_bound``,
+    from csrc/gat_attend.cu): (kTile + the tiles a row spans + 8) float32
+    roundings of the row's sum of p|z|, plus 2|e| roundings of each weight."""
+    from repro_torch.kernels.gat_attend import ref as gat_ref
+
+    return gat_ref.error_bound(indptr, src, z, s_src, s_dst, 0.2, mean)
+
+
+def gat_check(indptr, src, big, views, hot, mean, cuda, **view_kw):
+    """The kernel on the card against the plain version in float64, within
+    ``gat_bound``; returns the card's output and the bound's worst use."""
+    from repro_torch.kernels.gat_attend import gat_attend as gat_kernel
+    from repro_torch.kernels.gat_attend import ref as gat_ref
+
+    z, s_src, s_dst = views
+    want = gat_ref.gat_attend_ref(indptr, src, z.double(), s_src.double(), s_dst.double(), 0.2,
+                                  mean)
+    bound = gat_bound(indptr, src, z, s_src, s_dst, mean)
+    on = big.to(cuda)
+    got = gat_kernel.gat_attend(indptr.to(cuda), src.to(cuda), *gat_views(on, **view_kw), hot,
+                                0.2, mean).cpu()
+    err = (got.double() - want).abs()
+    assert torch.isfinite(got).all()
+    assert (err <= bound).all(), float((err / bound).max())
+    return got, float((err / bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,c,mean", [(4, 128, False), (4, 47, True), (4, 47, False),
+                                          (4, 33, True), (4, 64, False), (4, 65, True)])
+def test_gat_attend_matches_plain_and_repeats(cuda, heads, c, mean):
+    """Both instances (4 heads; rows of 129-256 floats, two slices a lane,
+    and 257-512, four), at GAT's widths and at each instance's ends, on an
+    RMAT graph (hubs of ~900 in-edges, rows without any) against the plain
+    version in float64, and two launches bit for bit."""
+    from repro_torch.kernels.gat_attend import gat_attend as gat_kernel
+
+    g = generate.rmat(12, 16, seed=1)
+    indptr = torch.as_tensor(g.indptr.astype(np.int32))
+    src = torch.as_tensor(g.indices.astype(np.int32))
+    big, *views = gat_inputs(indptr, heads, c, seed=2, score_scale=2.0)
+    kw = dict(heads=heads, c=c)
+    got, _ = gat_check(indptr, src, big, views, 700, mean, cuda, **kw)
+    on = big.to(cuda)
+    before = gat_kernel.gat_attend.launches
+    again = gat_kernel.gat_attend(indptr.to(cuda), src.to(cuda), *gat_views(on, heads, c), 700,
+                                  0.2, mean)
+    torch.cuda.synchronize()
+    assert gat_kernel.gat_attend.launches == before + 1
+    assert torch.equal(again.cpu(), got)
+
+
+def gat_hub_graph(hub_edges=1 << 20, n=6000, seed=5):
+    """A graph whose row 1234 has ``hub_edges`` in-edges and the others
+    0-19, drawn from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    counts = torch.randint(0, 20, (n,), generator=gen)
+    counts[1234] = hub_edges
+    indptr = torch.zeros(n + 1, dtype=torch.int64)
+    indptr[1:] = counts.cumsum(0)
+    src = torch.randint(0, n, (int(indptr[-1]),), generator=gen, dtype=torch.int32)
+    return indptr.to(torch.int32), src
+
+
+@pytest.mark.cuda
+def test_gat_attend_hub_split_across_blocks(cuda):
+    """A row of 2^20 in-edges spans 1,025 warps' tiles; its partials merge
+    in tile order to within the bound of a float64 sum, bit for bit run to
+    run."""
+    from repro_torch.kernels.gat_attend import gat_attend as gat_kernel
+
+    indptr, src = gat_hub_graph()
+    big, *views = gat_inputs(indptr, 4, 128, seed=3, score_scale=3.0)
+    got, worst = gat_check(indptr, src, big, views, 100, False, cuda, heads=4, c=128)
+    on = big.to(cuda)
+    again = gat_kernel.gat_attend(indptr.to(cuda), src.to(cuda), *gat_views(on, 4, 128), 100,
+                                  0.2, False).cpu()
+    assert torch.equal(again, got)
+    assert worst < 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", ["zero", "mid", "all"])
+def test_gat_attend_hot_size_changes_no_bit(cuda, hot):
+    """Rows below hot_size load with evict_last and the others with
+    evict_first: the tier changes the cache policy, never the values."""
+    g = generate.rmat(12, 16, seed=4)
+    indptr = torch.as_tensor(g.indptr.astype(np.int32))
+    src = torch.as_tensor(g.indices.astype(np.int32))
+    n = indptr.shape[0] - 1
+    big, *views = gat_inputs(indptr, 4, 128, seed=4)
+    rows = {"zero": 0, "mid": n // 2, "all": n}[hot]
+    got, _ = gat_check(indptr, src, big, views, rows, False, cuda, heads=4, c=128)
+    base, _ = gat_check(indptr, src, big, views, 0, False, cuda, heads=4, c=128)
+    assert torch.equal(got, base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,pad", [(1, 0), (0, 1), (2, 3)],
+                         ids=["z not 16-byte aligned", "row stride not 4 floats", "both"])
+@pytest.mark.parametrize("heads,c,mean", [(4, 128, False), (4, 47, True)])
+def test_gat_attend_misaligned_z(cuda, offset, pad, heads, c, mean):
+    """z read a float at a time gives the bits of z read in 16-byte slices."""
+    g = generate.rmat(11, 16, seed=6)
+    indptr = torch.as_tensor(g.indptr.astype(np.int32))
+    src = torch.as_tensor(g.indices.astype(np.int32))
+    big, *views = gat_inputs(indptr, heads, c, seed=6, offset=offset, pad=pad)
+    got, _ = gat_check(indptr, src, big, views, 500, mean, cuda, heads=heads, c=c, offset=offset)
+    aligned = torch.cat([t.contiguous() for t in views], 1)
+    want, _ = gat_check(indptr, src, aligned, views, 500, mean, cuda, heads=heads, c=c)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gat_attend_nan_and_refusals(cuda):
+    """A NaN score makes its rows' head NaN, as the plain version; heads the
+    kernel has no instance for, and rows narrower or wider than it takes,
+    raise."""
+    from repro_torch.kernels.gat_attend import gat_attend as gat_kernel
+    from repro_torch.kernels.gat_attend import ref as gat_ref
+
+    g = generate.rmat(10, 16, seed=7)
+    indptr = torch.as_tensor(g.indptr.astype(np.int32))
+    src = torch.as_tensor(g.indices.astype(np.int32))
+    big, z, s_src, s_dst = gat_inputs(indptr, 4, 47, seed=7)
+    s_src[int(src[0]), 1] = float("nan")
+    want = gat_ref.gat_attend_ref(indptr, src, z, s_src, s_dst, 0.2, False)
+    on = big.to(cuda)
+    got = gat_kernel.gat_attend(indptr.to(cuda), src.to(cuda), *gat_views(on, 4, 47), 0, 0.2,
+                                False).cpu()
+    assert torch.isnan(want).any() and torch.equal(torch.isnan(got), torch.isnan(want))
+    ic, sc = indptr.to(cuda), src.to(cuda)
+    with pytest.raises(ValueError, match="heads"):
+        gat_kernel.gat_attend(ic, sc, torch.zeros(indptr.shape[0] - 1, 6, device=cuda),
+                              *[torch.zeros(indptr.shape[0] - 1, 3, device=cuda)] * 2, 0, 0.2,
+                              False)
+    for width in (128, 516):
+        with pytest.raises(ValueError, match="512"):
+            gat_kernel.gat_attend(ic, sc, torch.zeros(indptr.shape[0] - 1, width, device=cuda),
+                                  *[torch.zeros(indptr.shape[0] - 1, 4, device=cuda)] * 2, 0,
+                                  0.2, False)
+
+
+@pytest.mark.cuda
+def test_gat_forward_on_card_matches_cpu_one_launch_a_layer(cuda):
+    """GAT at its published widths over an RMAT graph at scale 16 (2.0M
+    edges) through ``nn.gnn.apply``'s CSR route: on the card one
+    ``gat_attend`` call a layer (its partition, attention and merge
+    kernels, and no other gather or scatter), against the CPU within 1e-4
+    (float32 sums in other orders: cuBLAS's products and the kernel's
+    tiles), and both against the float64 reference within 5e-5 of the
+    logits' scale."""
+    from gbench.reference import gat as gat_reference
+    from repro_torch.configs.gat import CONFIG
+    from repro_torch.kernels.gat_attend import gat_attend as gat_kernel
+    from repro_torch.nn import gnn
+
+    g = generate.rmat(16, 16, seed=0)
+    gen = torch.Generator().manual_seed(0)
+    params = gnn.init(gen, CONFIG, 100, device="cpu")
+    batch = {"x": torch.randn(g.num_nodes, 100, generator=gen),
+             "indptr": torch.as_tensor(g.indptr.astype(np.int32)),
+             "src": torch.as_tensor(g.indices.astype(np.int32)),
+             "dst": torch.as_tensor(g.dst_ids())}
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    card_params = gnn.to_device(params, cuda)
+    with torch.no_grad():
+        want = gnn.apply(params, CONFIG, batch)
+        before = gat_kernel.gat_attend.launches
+        got = gnn.apply(card_params, CONFIG, on_card)
+        torch.cuda.synchronize()
+        assert gat_kernel.gat_attend.launches - before == CONFIG.n_layers
+        names = kernels_launched(lambda: gnn.apply(card_params, CONFIG, on_card))
+    attend = [nm for nm in names if "gat_attend" in nm]
+    assert len(attend) == 3 * CONFIG.n_layers
+    assert sum("gat_attend_kernel" in nm for nm in attend) == CONFIG.n_layers
+    assert not any("index" in nm or "scatter" in nm or "gather" in nm for nm in names), names
+    assert torch.isfinite(got).all() and got.shape == (g.num_nodes, CONFIG.d_out)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    ref64 = gat_reference.gat_forward(card_params, on_card["x"], on_card["indptr"],
+                                      on_card["src"]).cpu()
+    scale = float(ref64.pow(2).mean().sqrt())
+    assert float((got.cpu().double() - ref64).abs().max()) < 5e-5 * scale
+    assert float((want.double() - ref64).abs().max()) < 5e-5 * scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["mind", "gin-tu", "pna", "egnn", "nequip"])
 def test_train_step_on_card_matches_cpu(cuda, arch):
