@@ -205,7 +205,13 @@ Phases, each of which must pass:
      and peak memory; every K1 launch of layers 0 and 1 (d = 100, 400-byte
      rows, and d = 75, 300-byte rows) bit for bit against
      hot_gather_two_tier_ref on the path's own rows, ids and hot_size, then
-     K1's numbers at both widths on those launches;
+     K1's numbers at both widths on those launches; the same forward
+     launches segment_stats (PNA's aggregation, csrc/segment_reduce.cu)
+     once a block and layer, a second forward holds each launch against
+     its float64 check (sums within the kernel's error bound, extremes
+     exact) and relaunches it bit for bit, then its times on the last
+     layer's blocks beside its byte bound, the plain version and the four
+     library calls it replaced;
  18. the segment-sum kernel (PageRank-Delta's and PageRank's pull sum) on
      the graphs of the cells kron25.prd and urand25.prd (scale 25, 1.05e9
      and 1.07e9 edges): apps.pagerank_delta there launches it once an
@@ -3002,19 +3008,20 @@ def run_gateway(dev, params) -> dict:
 # phase 14: LM serving (nn.transformer, LMServeEngine, lm_loop, --engine lm)
 # ---------------------------------------------------------------------------
 def kernel_counters() -> tuple:
-    """K1's, K2's, K3's, the segment-min, the relaxation's, the segment-sum
-    and the GAT attention kernel's wrappers: each counts its launches on the
-    card."""
+    """K1's, K2's, K3's, the segment-min, the relaxation's, the segment-sum,
+    the GAT attention and the segment-reduce kernel's wrappers: each counts
+    its launches on the card."""
     from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
     from repro_torch.kernels.gat_attend.gat_attend import gat_attend
     from repro_torch.kernels.hot_gather.hot_gather import (hot_gather_hot_part,
                                                            hot_gather_segment_sum)
     from repro_torch.kernels.segment_min.relax import relax_min
     from repro_torch.kernels.segment_min.segment_min import segment_min
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_stats
     from repro_torch.kernels.segment_sum.segment_sum import segment_sum
 
     return (hot_gather_hot_part, hot_gather_segment_sum, hot_bag_hot_part, segment_min,
-            relax_min, segment_sum, gat_attend)
+            relax_min, segment_sum, gat_attend, segment_stats)
 
 
 def lm_close(label: str, got, want, tol: dict) -> float:
@@ -4225,14 +4232,21 @@ def run_pna_whole_graph(dev) -> list:
     one forward and must be n_layers x blocks just after it; every launch
     of the first two layers (d = 100 and d = 75, K1's two row kernels) is
     held bit for bit against hot_gather_two_tier_ref on the path's own
-    (h, src block, hot_size); the logits are finite. Returns K1's kernel
-    entries at the two widths, timed on the launches of one layer each."""
+    (h, src block, hot_size); the logits are finite. The same forward must
+    launch ``segment_stats`` n_layers x blocks times, and a second forward
+    holds each of its launches, on the path's own messages and offsets,
+    against the float64 check ``kernels/segment_reduce/ref.check`` (sums
+    within the kernel's error bound, extremes exact) and relaunches it bit
+    for bit. Returns K1's kernel entries at the two widths, timed on the
+    launches of one layer each, and the segment-reduce entry, timed on the
+    last layer's blocks (``pna_reduce_numbers``)."""
     import torch
 
     from gbench import graphs, spec
     from gbench.apps import pna as pna_app
     from repro_torch.kernels.hot_gather import ops, ref
     from repro_torch.kernels.hot_gather.hot_gather import hot_gather_hot_part
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_stats
     from repro_torch.nn import gnn
 
     bench = spec.benchmark()
@@ -4256,7 +4270,7 @@ def run_pna_whole_graph(dev) -> list:
     app.warm_up()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    hot_gather_hot_part.launches = 0
+    hot_gather_hot_part.launches = segment_stats.launches = 0
     ops.hot_gather = recording
     try:
         t0 = time.perf_counter()
@@ -4265,13 +4279,16 @@ def run_pna_whole_graph(dev) -> list:
         forward_s = time.perf_counter() - t0
     finally:
         ops.hot_gather = real
-    launches = hot_gather_hot_part.launches
+    launches, reduces = hot_gather_hot_part.launches, segment_stats.launches
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"PNA forward: {forward_s:.4f} s, logits {tuple(logits.shape)}, K1 launches "
-          f"{launches} (want {layers} x {len(blocks)}), peak {peak:.4f} GiB")
+          f"{launches}, segment_stats launches {reduces} (want {layers} x {len(blocks)} each), "
+          f"peak {peak:.4f} GiB")
     if launches != layers * len(blocks) or len(seen) != launches:
         fail(f"PNA: K1 launched {launches} times ({len(seen)} recorded), not "
              f"{layers} x {len(blocks)}")
+    if reduces != layers * len(blocks):
+        fail(f"PNA: segment_stats launched {reduces} times, not {layers} x {len(blocks)}")
     if logits.shape != (g.num_nodes, app.cfg.d_out) or not torch.isfinite(logits).all():
         fail("PNA: logits not finite or of the wrong shape")
     del logits
@@ -4299,7 +4316,92 @@ def run_pna_whole_graph(dev) -> list:
                             replaces="src/repro/kernels/hot_gather/hot_gather.py:26",
                             path=path, **res))
         torch.cuda.empty_cache()
+    del seen, mix
+    torch.cuda.empty_cache()
+    entries.append(pna_reduce_numbers(app, g, blocks))
     return entries
+
+
+def pna_reduce_numbers(app, g, blocks) -> dict:
+    """Phase 17's second forward, each ``segment_stats`` launch held against
+    ``ref.check`` and relaunched bit for bit; then the kernel's times on
+    the last layer's blocks: a layer's launches (``ms``, ``device_ms``,
+    ``host_us``) beside their byte bound (4·E·d + 4(R + 1) + 16·R·d a
+    block), the plain version (``plain_ms``) and the four library calls
+    the layer made before, two ``index_add_`` over the block's int32 ids
+    and two ``torch.segment_reduce`` (``library_ms``, ``library_device_ms``)."""
+    import torch
+
+    from repro_torch.kernels.segment_reduce import ref
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_stats
+    from repro_torch.nn import gnn
+
+    layers, path = app.cfg.n_layers, "kron21.pna, a layer's blocks"
+    seen, kept, worst = [], [], 0.0   # errors over the bound; the last layer's (m, offsets)
+
+    def checking(m, offsets):
+        out = segment_stats(m, offsets)
+        again = segment_stats(m, offsets)
+        ok, err = ref.check(out, m, offsets)
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+            fail(f"segment_stats on {path}: two launches differ")
+        if not ok:
+            fail(f"segment_stats on {path} (E {m.shape[0]}, R {offsets.shape[0] - 1}): outside "
+                 f"ref.check's bound (largest error over it {err:.4e})")
+        nonlocal worst
+        worst = max(worst, err)
+        seen.append(err)
+        if len(seen) > (layers - 1) * len(blocks):
+            kept.append((m, offsets))
+        return out
+
+    gnn.segment_stats = checking
+    try:
+        logits = app.trial(0, {})
+        torch.cuda.synchronize()
+    finally:
+        gnn.segment_stats = segment_stats
+    if len(seen) != layers * len(blocks) or not torch.isfinite(logits).all():
+        fail(f"PNA: the checked forward made {len(seen)} segment_stats calls for {layers} x "
+             f"{len(blocks)}")
+    del logits
+    print(f"segment_stats on {path}: {len(seen)} launches of a forward within ref.check's bound "
+          f"of float64 (largest error over its bound {worst:.4e}), extremes exact, each "
+          f"relaunched bit for bit")
+
+    ids = [g.dst[e0:e1] - v0 for v0, _, e0, e1 in blocks]
+
+    def library():
+        for (m, offsets), seg in zip(kept, ids):
+            rows = (offsets.shape[0] - 1, m.shape[1])
+            m.new_zeros(rows).index_add_(0, seg, m)
+            m.new_zeros(rows).index_add_(0, seg, m * m)
+            gnn._seg_extreme_sorted(m, offsets, "amax")
+            gnn._seg_extreme_sorted(m, offsets, "amin")
+
+    res = timed("", lambda: [segment_stats(m, o) for m, o in kept], reps=10, calls=20)
+    res["plain_ms"] = time_ms(lambda: [ref.segment_stats_ref(m, o) for m, o in kept], reps=3,
+                              warmup=1)
+    res["library_ms"] = time_ms(library, reps=3, warmup=1)
+    res["library_device_ms"] = device_ms(library, reps=3)
+    nbytes = sum(4 * m.numel() + 4 * o.numel() + 16 * (o.numel() - 1) * m.shape[1]
+                 for m, o in kept)
+    res["bound_ms"], res["bound_by"] = bound(nbytes)
+    e, d = sum(m.shape[0] for m, _ in kept), kept[0][0].shape[1]
+    res.update(max_err_over_bound=worst, launches=layers * len(blocks),
+               shape=f"E={e} float32 messages of d={d} over N={g.num_nodes} rows in "
+                     f"{len(kept)} blocks a layer, {layers} layers a forward")
+    print(f"segment_stats on {path} ({res['shape']}), per layer: {res['ms']:.4f} ms (device "
+          f"{fmt_ms(res['device_ms'])}, host {res['host_us']:.2f} us/call), plain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms; the four library calls "
+          f"{res['library_ms']:.4f} ms (device {fmt_ms(res['library_device_ms'])})")
+    del kept, ids
+    torch.cuda.empty_cache()
+    return dict(name="segment_reduce", route="cuda", source="src/repro_torch/csrc/segment_reduce.cu",
+                replaces="none: the JAX package aggregates PNA with XLA's jax.ops.segment_sum, "
+                         "segment_max and segment_min",
+                path=path, **res)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,9 @@ PNA also takes a whole graph as a destination-sorted CSR: ``x``,
 ``indptr`` (N + 1,), ``src`` and ``dst`` (E,) int32 sorted by
 destination, and no ``emask``. That batch takes a blocked inference path
 that works one block of destination rows at a time, so that no tensor
-spans all E edges (``_pna_blocked``). GAT (``configs/gat.py``, not in the
+spans all E edges (``_pna_blocked``; on the card its four statistics come
+from one hand-written pass over each block's messages,
+``kernels/segment_reduce``). GAT (``configs/gat.py``, not in the
 registry) takes the same CSR batch through one hand-written attention pass
 a layer (``_gat_csr``).
 
@@ -51,6 +53,7 @@ from repro_torch.dist.sharding import (LocalRows, LocalSegmentExtreme, local_edg
 from repro_torch.kernels.gat_attend import ops as gat_ops
 from repro_torch.kernels.gat_attend.gat_attend import gat_attend
 from repro_torch.kernels.hot_gather import ops as hot_ops
+from repro_torch.kernels.segment_reduce.segment_reduce import segment_stats
 from repro_torch.nn import layers as L
 from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -303,9 +306,11 @@ def _pna_blocked(params, cfg: GNNConfig, batch: Dict, mean_log_deg: float | None
     ``core.plan.make_plan`` to the L2 at 4·d bytes a row) where
     ``cfg.grasp`` is set, else by ``index_select``; runs ``pre`` on
     ``[h_dst, h_src]``; reduces the four statistics over the block's rows
-    (the sums by ``index_add_`` on int32 ids, the extremes by a segmented
-    reduction over the block's CSR offsets); and writes the block's new
-    rows. Inference only: a call that autograd would record raises."""
+    (on the card in one pass over the messages, ``segment_stats``; on the
+    CPU the sums by ``index_add_`` on int32 ids and the extremes by a
+    segmented reduction over the block's CSR offsets); and writes the
+    block's new rows. Inference only: a call that autograd would record
+    raises."""
     dev = _device_of(params)
     h = _get(batch, "x", dev)
     if torch.is_grad_enabled() and (h.requires_grad or any(
@@ -340,13 +345,17 @@ def _pna_blocked(params, cfg: GNNConfig, batch: Dict, mean_log_deg: float | None
                         m = _mlp(lp["pre"], torch.cat([hi, hj], dim=-1))
                         del hi, hj
                     with spans.span("gnn.reduce"):
-                        seg, offsets = dst_b - v0, indptr[v0:v1 + 1] - e0
-                        rows = (v1 - v0, m.shape[1])
-                        stats = (m.new_zeros(rows).index_add_(0, seg, m),
-                                 m.new_zeros(rows).index_add_(0, seg, m * m),
-                                 _seg_extreme_sorted(m, offsets, "amax"),
-                                 _seg_extreme_sorted(m, offsets, "amin"))
-                        del m, seg
+                        offsets = indptr[v0:v1 + 1] - e0
+                        if m.is_cuda:
+                            stats = segment_stats(m, offsets.to(torch.int32)).unbind()
+                        else:
+                            seg, rows = dst_b - v0, (v1 - v0, m.shape[1])
+                            stats = (m.new_zeros(rows).index_add_(0, seg, m),
+                                     m.new_zeros(rows).index_add_(0, seg, m * m),
+                                     _seg_extreme_sorted(m, offsets, "amax"),
+                                     _seg_extreme_sorted(m, offsets, "amin"))
+                            del seg
+                        del m
                     with spans.span("gnn.update"):
                         out[v0:v1] = _pna_update(lp, cfg, h[v0:v1], stats, deg[v0:v1],
                                                  log_deg[v0:v1], delta)

@@ -247,3 +247,67 @@ def test_reference_imports_only_torch():
     names |= {node.module.split(".")[0] for node in ast.walk(tree)
               if isinstance(node, ast.ImportFrom)}
     assert names <= {"__future__", "torch"}, names
+
+
+def test_cpu_route_reduces_through_seg_extreme_sorted(monkeypatch):
+    """On the CPU the blocked layer keeps its four library calls and looks
+    ``_seg_extreme_sorted`` up in ``nn.gnn`` at call time: patching it moves
+    the logits, and the wrapper of the card's kernel is never called."""
+    cfg, params, batch = setup(0)
+    want = blocked(params, cfg, batch, 500, monkeypatch)
+    real = gnn._seg_extreme_sorted
+    calls = []
+
+    def without_min(x, offsets, reduce):
+        calls.append(reduce)
+        if reduce == "amin":
+            return x.new_zeros((offsets.shape[0] - 1, x.shape[1]))
+        return real(x, offsets, reduce)
+
+    monkeypatch.setattr(gnn, "_seg_extreme_sorted", without_min)
+    monkeypatch.setattr(gnn, "segment_stats", lambda *a: pytest.fail("kernel on the CPU"))
+    got = blocked(params, cfg, batch, 500, monkeypatch)
+    n_blocks = len(gnn.pna_blocks(batch["indptr"], 500))
+    assert calls == ["amax", "amin"] * (cfg.n_layers * n_blocks)
+    assert not torch.allclose(got, want)
+
+
+class _Ops(TorchDispatchMode):
+    """The name of every aten op called."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_card_route_reduces_in_one_launch_a_block(monkeypatch, cuda):
+    """On the card one forward makes n_layers x blocks ``segment_stats``
+    launches, calls no ``index_add_`` or ``segment_reduce`` of torch, and
+    keeps to the float64 reference within the PNA tolerance, as the CPU
+    route does."""
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_stats
+
+    cfg, params, batch = setup(0, d_feat=100, cfg=base.get_arch("pna"))
+    card = {k: v.to(cuda) for k, v in batch.items()}
+    before = segment_stats.launches
+    with _Ops() as ops:
+        got = blocked(gnn.to_device(params, cuda), cfg, card, 500, monkeypatch)
+    torch.cuda.synchronize()
+    blocks = gnn.pna_blocks(batch["indptr"], 500)
+    assert all(e1 > e0 for _, _, e0, e1 in blocks)
+    assert segment_stats.launches - before == cfg.n_layers * len(blocks)
+    assert not [n for n in ops.names if "index_add" in n or "segment_reduce" in n]
+    np.testing.assert_allclose(got.double().cpu().numpy(), reference(params, cfg, batch).numpy(),
+                               **TOL)
