@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only 16     # the set-up, then phase 16 alone
     python3 chip_smoke.py --only 18     # the segment sum at the PRD cells' shapes
     python3 chip_smoke.py --only 19     # GAT's attention at the kron21.gat cell's shapes
+    python3 chip_smoke.py --only 20     # DeeperGCN's aggregation in the kron21.deepergcn cell
 
 
 Phases, each of which must pass:
@@ -229,7 +230,18 @@ Phases, each of which must pass:
      against ref.gat_attend_ref in float64 within ref.error_bound (the card
      tests' bound) and relaunched bit for bit; then the kernel's times at
      both row widths (2 KB and 752 B) beside its byte bound and the plain
-     version.
+     version;
+ 20. DeeperGCN inference over a whole graph: the benchmark cell
+     kron21.deepergcn's forward (gbench/apps/deepergcn.py: the kron21 graph,
+     DeeperGCN at the ogbn-products widths, features and weights from one
+     seed, the norms fitted by the float64 reference) through nn.gnn.apply's
+     CSR route: softmax_aggr launched once a layer (14), the logits within
+     the cell's logit_err limit of that reference, the forward's seconds
+     and peak memory; then a second forward whose every softmax_aggr launch
+     is held, on its own card tensors, against ref.softmax_aggr_ref in
+     float64 within ref.error_bound and relaunched bit for bit; then the
+     kernel's times at the 512 B rows beside its byte and exponential
+     bounds and the plain version.
 Each path that reaches a kernel is driven with the kernel's launch count
 set to 0 just before it and read just after. The kernels' times are taken
 at each path's own shapes, weighted by its launches: event-timed, device
@@ -3009,8 +3021,8 @@ def run_gateway(dev, params) -> dict:
 # ---------------------------------------------------------------------------
 def kernel_counters() -> tuple:
     """K1's, K2's, K3's, the segment-min, the relaxation's, the segment-sum,
-    the GAT attention and the segment-reduce kernel's wrappers: each counts
-    its launches on the card."""
+    the GAT attention, the segment-reduce and the softmax-aggregation
+    kernel's wrappers: each counts its launches on the card."""
     from repro_torch.kernels.embedding_bag.embedding_bag import hot_bag_hot_part
     from repro_torch.kernels.gat_attend.gat_attend import gat_attend
     from repro_torch.kernels.hot_gather.hot_gather import (hot_gather_hot_part,
@@ -3019,9 +3031,10 @@ def kernel_counters() -> tuple:
     from repro_torch.kernels.segment_min.segment_min import segment_min
     from repro_torch.kernels.segment_reduce.segment_reduce import segment_stats
     from repro_torch.kernels.segment_sum.segment_sum import segment_sum
+    from repro_torch.kernels.softmax_aggr.softmax_aggr import softmax_aggr
 
     return (hot_gather_hot_part, hot_gather_segment_sum, hot_bag_hot_part, segment_min,
-            relax_min, segment_sum, gat_attend, segment_stats)
+            relax_min, segment_sum, gat_attend, segment_stats, softmax_aggr)
 
 
 def lm_close(label: str, got, want, tol: dict) -> float:
@@ -4657,6 +4670,129 @@ def run_gat_whole_graph(dev) -> list:
     return entries
 
 
+DEEPERGCN_CELL = "kron21.deepergcn"
+DEEPERGCN_SEED = 2**31 + 2020  # the graph's labels, then the features and weights
+SFU_PER_S = 132 * 16 * 1.98e9  # H100 SXM: 16 ex2 a clock an SM, at its 1.98 GHz boost
+
+
+def softmax_aggr_bytes(n: int, e: int, width: int) -> int:
+    """The least bytes of one softmax_aggr call: the offsets, the ids and
+    each row of u read once, each output row written once."""
+    return 4 * (n + 1) + 4 * e + 8 * width * n
+
+
+def run_deepergcn_whole_graph(dev) -> list:
+    """Phase 20: DeeperGCN at the ogbn-products widths over the kron21
+    graph, the forward of the benchmark cell kron21.deepergcn
+    (``gbench/apps/deepergcn.py``: the cell's graph, features and weights
+    from one seed, the norms' statistics fitted by one float64 forward of
+    the plain reference, whose logits are the cell's answer), through
+    nn.gnn.apply's CSR route. ``softmax_aggr.launches`` is set to 0 just
+    before one forward and must be n_layers just after it; the logits are
+    within the cell's ``logit_err`` limit of the answer. In a second
+    forward every launch is held, on its own card tensors, against
+    ``ref.softmax_aggr_ref`` in float64 within ``ref.error_bound`` (the card
+    tests' bound), and launched again bit for bit. Returns the kernel's
+    entry, timed on the last layer's inputs (every layer's rows are 512 B)."""
+    import torch
+
+    from gbench import graphs, spec
+    from gbench.apps import deepergcn as deepergcn_app
+    from repro_torch.kernels.softmax_aggr import ref
+    from repro_torch.kernels.softmax_aggr.softmax_aggr import softmax_aggr
+    from repro_torch.nn import gnn
+
+    bench = spec.benchmark()
+    cell = spec.cell(bench, DEEPERGCN_CELL)
+    t0 = time.perf_counter()
+    g = graphs.make(spec.config(bench, cell["config"]), DEEPERGCN_SEED, dev, weighted=False)
+    app = deepergcn_app.App(g, spec.traffic(cell["traffic"]), dev)
+    torch.cuda.synchronize()
+    n, e, layers = g.num_nodes, g.num_edges, app.cfg.n_layers
+    print(f"DeeperGCN graph {cell['config']} (seed {DEEPERGCN_SEED}): N {n}, E {e}, the "
+          f"norms fitted ({time.perf_counter() - t0:.1f} s); {app.describe()}")
+
+    app.warm_up()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    softmax_aggr.launches = 0
+    t0 = time.perf_counter()
+    logits = app.trial(0, {})
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    launches = softmax_aggr.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    err = app.compare(logits.cpu(), app.references([0])[0])["logit_err"]
+    limit = spec.limits(DEEPERGCN_CELL)["logit_err"]
+    rms = float(app.answer.pow(2).mean().sqrt())
+    print(f"DeeperGCN forward: {forward_s:.4f} s, logits {tuple(logits.shape)}, softmax_aggr "
+          f"launches {launches} (want {layers}), peak {peak:.4f} GiB; logit_err {err:.4e} "
+          f"(limit {limit}) against the float64 reference, whose logits' RMS is {rms:.4f}")
+    if launches != layers:
+        fail(f"DeeperGCN: softmax_aggr launched {launches} times in a {layers}-layer forward")
+    if logits.shape != (n, app.cfg.d_out) or not err <= limit:
+        fail(f"DeeperGCN: logits of shape {tuple(logits.shape)}, logit_err {err} over {limit}")
+    del logits
+
+    entries, seen = [], []
+
+    def checking(indptr, src, u, hot_size, t, eps):
+        def launch():
+            return softmax_aggr(indptr, src, u, hot_size, t, eps)
+
+        out = launch()
+        layer = len(seen)
+        seen.append(hot_size)
+        path = f"kron21.deepergcn, {4 * u.shape[1]} B rows"
+        again = launch()
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+            fail(f"softmax_aggr on {path}: two launches on layer {layer}'s inputs differ")
+        del again
+        err = ref.softmax_aggr_ref(indptr, src, u.double(), t, eps)
+        err.sub_(out).abs_()
+        limit = ref.error_bound(indptr, src, u, t, eps)
+        ok = bool((err <= limit).all()) and bool(torch.isfinite(out).all())
+        worst = float(err.div_(limit).max())
+        del err, limit
+        print(f"softmax_aggr on {path}, layer {layer} (hot_size {hot_size}): within "
+              f"ref.error_bound of the float64 plain version {ok} (largest error over its bound "
+              f"{worst:.4e}); two launches bit for bit")
+        if not ok:
+            fail(f"softmax_aggr on {path}, layer {layer}: outside its error bound")
+        if layer != layers - 1:
+            return out
+        res = timed("", launch, reps=10, calls=20)
+        res["plain_ms"] = time_ms(lambda: ref.softmax_aggr_ref(indptr, src, u, t, eps),
+                                  reps=3, warmup=1)
+        res["bound_ms"], res["bound_by"] = bound(softmax_aggr_bytes(n, e, u.shape[1]))
+        res["exp_bound_ms"] = (n + e) * u.shape[1] / SFU_PER_S * 1e3
+        res.update(max_err_over_bound=worst, launches=layers, hot_size=hot_size,
+                   shape=f"{u.shape[1]} float32 channels of u over N={n}, E={e}, "
+                         f"{layers} a forward")
+        print(f"softmax_aggr on {path} ({res['shape']}), per launch: {res['ms']:.4f} ms "
+              f"(device {fmt_ms(res['device_ms'])}, host {res['host_us']:.2f} us/call), plain "
+              f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms of bytes, "
+              f"{res['exp_bound_ms']:.4f} ms of exponentials")
+        entries.append(dict(name="softmax_aggr", route="cuda",
+                            source="src/repro_torch/csrc/softmax_aggr.cu",
+                            replaces="none: the JAX package has no DeeperGCN", path=path, **res))
+        return out
+
+    gnn.softmax_aggr = checking
+    try:
+        logits = app.trial(0, {})
+        torch.cuda.synchronize()
+    finally:
+        gnn.softmax_aggr = softmax_aggr
+    if len(seen) != layers or not torch.isfinite(logits).all():
+        fail(f"DeeperGCN: the checked forward made {len(seen)} softmax_aggr calls for {layers} "
+             "layers")
+    del logits, app, g
+    torch.cuda.empty_cache()
+    return entries
+
+
 def phase(label: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -4666,8 +4802,8 @@ def phase(label: str, fn, *args):
 
 
 # phases that ``--only`` runs alone after the set-up (phase 1 is not needed:
-# 14-16 launch no kernel of the port, and 17-19 build theirs at their first
-# launch; 17-19 print their own kernels lines)
+# 14-16 launch no kernel of the port, and 17-20 build theirs at their first
+# launch; 17-20 print their own kernels lines)
 ONLY = {"14": lambda dev: phase("14 (LM serving)", run_lm_serving, dev),
         "15": lambda dev: phase("15 (LM training)", run_lm_training, dev),
         "16": lambda dev: phase("16 (the mesh and sharding layer)", run_mesh, dev),
@@ -4676,7 +4812,9 @@ ONLY = {"14": lambda dev: phase("14 (LM serving)", run_lm_serving, dev),
         "18": lambda dev: print(json.dumps({"kernels": phase(
             "18 (the segment sum at the PRD cells' shapes)", run_segment_sum, dev)})),
         "19": lambda dev: print(json.dumps({"kernels": phase(
-            "19 (GAT over a whole graph)", run_gat_whole_graph, dev)}))}
+            "19 (GAT over a whole graph)", run_gat_whole_graph, dev)})),
+        "20": lambda dev: print(json.dumps({"kernels": phase(
+            "20 (DeeperGCN over a whole graph)", run_deepergcn_whole_graph, dev)}))}
 
 
 def main(argv=None) -> int:
@@ -4684,7 +4822,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one card and check it.")
     ap.add_argument("--only", default="", help=f"comma-separated phases of {sorted(ONLY)} "
-                    "to run alone (no final result line; kernels lines from 17-19 only)")
+                    "to run alone (no final result line; kernels lines from 17-20 only)")
     only = [x for x in ap.parse_args(argv).only.split(",") if x]
     if set(only) - set(ONLY):
         ap.error(f"--only takes phases of {sorted(ONLY)}")
@@ -4797,6 +4935,7 @@ def main(argv=None) -> int:
     kernels[7:7] = phase("17 (PNA over a whole graph)", run_pna_whole_graph, dev)
     kernels += phase("18 (the segment sum at the PRD cells' shapes)", run_segment_sum, dev)
     kernels += phase("19 (GAT over a whole graph)", run_gat_whole_graph, dev)
+    kernels += phase("20 (DeeperGCN over a whole graph)", run_deepergcn_whole_graph, dev)
     if any(k["launches"] < 1 for k in kernels):
         fail("a kernel's path did not launch it")
     # training runs after the kernels' timing: after its profiled fit,

@@ -4,13 +4,16 @@ Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
 repository's ``build/`` directory and loaded with ``ctypes``. The library's
 file name carries a hash of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded.
+is rebuilt and a stale library is never loaded. The hash also covers the
+headers of ``csrc/`` that the source includes (``#include "<name>.cuh"``),
+so an edited header rebuilds every library that includes it.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from functools import lru_cache
@@ -34,9 +37,14 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
+INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = (CSRC / f"{name}.cu").read_bytes()
+    headers = sorted({h.decode() for h in INCLUDE.findall(text)})
+    parts = [text] + [(CSRC / h).read_bytes() for h in headers]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 
 

@@ -1,4 +1,4 @@
-"""GNN architectures: GIN, PNA, EGNN, NequIP-lite, GAT (forward).
+"""GNN architectures: GIN, PNA, EGNN, NequIP-lite, GAT, DeeperGCN (forward).
 
 Message passing is a gather (``index_select`` over edge endpoint indices)
 and a segment reduction over ``dst`` (``index_add_``; PNA's max and min by
@@ -26,7 +26,9 @@ spans all E edges (``_pna_blocked``; on the card its four statistics come
 from one hand-written pass over each block's messages,
 ``kernels/segment_reduce``). GAT (``configs/gat.py``, not in the
 registry) takes the same CSR batch through one hand-written attention pass
-a layer (``_gat_csr``).
+a layer (``_gat_csr``), and DeeperGCN (``configs/deepergcn.py``, not in the
+registry either) through one hand-written softmax-aggregation pass a layer
+(``_deepergcn_csr``).
 
 Parameters are nested dicts and lists of tensors, with ``None`` where the
 JAX package has one (GIN's ``eps`` when it is not learnable, NequIP's
@@ -54,6 +56,8 @@ from repro_torch.kernels.gat_attend import ops as gat_ops
 from repro_torch.kernels.gat_attend.gat_attend import gat_attend
 from repro_torch.kernels.hot_gather import ops as hot_ops
 from repro_torch.kernels.segment_reduce.segment_reduce import segment_stats
+from repro_torch.kernels.softmax_aggr import ref as softmax_aggr_ref
+from repro_torch.kernels.softmax_aggr.softmax_aggr import softmax_aggr
 from repro_torch.nn import layers as L
 from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -648,12 +652,132 @@ def _gat_csr(params, cfg, batch: Dict):
         return h
 
 
+# ---------------------------------------------------------------------------
+# DeeperGCN (Li et al. 2020) — GENConv's softmax aggregation in res+ blocks
+# ---------------------------------------------------------------------------
+def _linear_init(gen: torch.Generator, d_in: int, d_out: int):
+    """``w`` (d_in, d_out) N(0, 1/d_in) and ``b`` (d_out,) N(0, 0.1²)."""
+    return {**L.dense_init(gen, d_in, d_out), "b": L.normal(gen, (d_out,), 0.1)}
+
+
+def deepergcn_init(gen: torch.Generator, cfg, d_feat: int):
+    """The encoder ``enc``, a Linear a layer (``layers``), a BatchNorm's
+    ``g`` and ``b`` before every layer but the first and before the head
+    (``norms``), their running ``mean`` and ``var`` (``stats``: buffers,
+    not parameters) and the head ``out``. Weights N(0, 1/d_in), biases and
+    BN's beta and mean N(0, 0.1²), gamma 1 + N(0, 0.1²), var uniform in
+    [0.5, 1.5]."""
+    d = cfg.d_hidden
+    norms, stats = [], []
+    for _ in range(cfg.n_layers):
+        norms.append({"g": 1 + L.normal(gen, (d,), 0.1), "b": L.normal(gen, (d,), 0.1)})
+        stats.append({"mean": L.normal(gen, (d,), 0.1),
+                      "var": 0.5 + torch.rand((d,), generator=gen, device=gen.device)})
+    return {"enc": _linear_init(gen, d_feat, d),
+            "layers": [_linear_init(gen, d, d) for _ in range(cfg.n_layers)],
+            "norms": norms, "stats": stats, "out": _linear_init(gen, d, cfg.d_out)}
+
+
+def _affine(p, x: torch.Tensor) -> torch.Tensor:
+    return torch.addmm(p["b"], x, p["w"])
+
+
+def _bn_fold(norm, stats, eps: float, offset=0.0):
+    """``(scale, shift)`` with ``BN(h + offset) = h * scale + shift``: eval
+    BatchNorm of a stream kept ``offset`` short of its value."""
+    scale = norm["g"] * torch.rsqrt(stats["var"] + eps)
+    return scale, norm["b"] + (offset - stats["mean"]) * scale
+
+
+def deepergcn_apply(params, cfg, batch: Dict):
+    """DeeperGCN's node logits (N, d_out). A batch with a destination-sorted
+    CSR (``indptr``) takes the inference route through the aggregation
+    kernel, ``_deepergcn_csr``; a batch dict (``src``, ``dst``, ``emask``)
+    drops its masked edges, sorts the rest by destination and aggregates
+    with the kernel's plain version (``kernels/softmax_aggr/ref.py``), in
+    plain torch operations that autograd can differentiate. Every vertex
+    has a self loop in its softmax on both routes."""
+    if "indptr" in batch:
+        return _deepergcn_csr(params, cfg, batch)
+    dev = _device_of(params)
+    x = _get(batch, "x", dev)
+    src, dst, emask = _edges(batch, dev)
+    n = x.shape[0]
+    src, dst = src[emask], dst[emask]
+    src = src[torch.argsort(dst, stable=True)]
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.bincount(dst, minlength=n).cumsum(0)
+    h = _affine(params["enc"], x)
+    for i, lp in enumerate(params["layers"]):
+        if i == 0:
+            u = h
+        else:
+            scale, shift = _bn_fold(params["norms"][i - 1], params["stats"][i - 1], cfg.bn_eps)
+            u = F.relu(h * scale + shift)
+        out = _affine(lp, u + softmax_aggr_ref.aggregate(indptr, src, u, cfg.t, cfg.eps))
+        h = out if i == 0 else h + out
+    scale, shift = _bn_fold(params["norms"][-1], params["stats"][-1], cfg.bn_eps)
+    return _affine(params["out"], F.relu(h * scale + shift))
+
+
+def _deepergcn_csr(params, cfg, batch: Dict):
+    """DeeperGCN inference over a whole graph. The batch holds ``x`` (N, F)
+    and the in-CSR: ``indptr`` (N + 1,) and ``src`` (E,), int32, sorted by
+    destination (``softmax_aggr`` checks them). The encoder is one SGEMM;
+    each layer is the pre-activation (BN folded to one scale and shift a
+    channel, then ReLU; span ``gnn.norm``), one ``softmax_aggr`` call over
+    the CSR and its self loops that writes u + m (rows below
+    ``make_plan(N, 4·d).hot_size`` held in L2; ``gnn.aggregate``) and one
+    SGEMM that adds (u + m) W into the residual stream in place
+    (``gnn.transform``). The biases are not added to the stream, which so
+    stays their running sum short of its value; each norm's shift adds the
+    sum back. No tensor spans the E edges. Inference only: a call that
+    autograd would record raises."""
+    dev = _device_of(params)
+    x = _get(batch, "x", dev)
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in tree_leaves(params) if t is not None)):
+        raise RuntimeError("the DeeperGCN forward over a CSR (a batch with indptr) is inference "
+                           "only: run it under torch.no_grad(), or train on a batch dict with "
+                           "src, dst and emask")
+    with torch.no_grad():
+        indptr, src = _get(batch, "indptr", dev), _get(batch, "src", dev)
+        n = x.shape[0]
+        hot_size = make_plan(n, 4 * cfg.d_hidden).hot_size
+        with spans.span("gnn.transform"):
+            u = _affine(params["enc"], x)
+        biases = 0.0
+        for i, lp in enumerate(params["layers"]):
+            if i > 0:
+                with spans.span("gnn.norm"):
+                    scale, shift = _bn_fold(params["norms"][i - 1], params["stats"][i - 1],
+                                            cfg.bn_eps, biases)
+                    u = torch.addcmul(shift, h, scale).relu_()
+            with spans.span("gnn.aggregate"):
+                um = softmax_aggr(indptr, src, u, hot_size, cfg.t, cfg.eps)
+            del u
+            with spans.span("gnn.transform"):
+                if i == 0:
+                    h = um @ lp["w"]
+                else:
+                    h.addmm_(um, lp["w"])
+            del um
+            biases = biases + lp["b"]
+        with spans.span("gnn.norm"):
+            scale, shift = _bn_fold(params["norms"][-1], params["stats"][-1], cfg.bn_eps, biases)
+            u = torch.addcmul(shift, h, scale).relu_()
+        del h
+        with spans.span("gnn.transform"):
+            return _affine(params["out"], u)
+
+
 KINDS = {
     "gin": (gin_init, gin_apply),
     "pna": (pna_init, pna_apply),
     "egnn": (egnn_init, egnn_apply),
     "nequip": (nequip_init, nequip_apply),
     "gat": (gat_init, gat_apply),
+    "deepergcn": (deepergcn_init, deepergcn_apply),
 }
 
 

@@ -803,6 +803,148 @@ def test_gat_forward_on_card_matches_cpu_one_launch_a_layer(cuda):
     assert float((want.double() - ref64).abs().max()) < 5e-5 * scale
 
 
+# ---------------------------------------------------------------------------
+# DeeperGCN's softmax aggregation (csrc/softmax_aggr.cu) and its CSR route
+# ---------------------------------------------------------------------------
+def aggr_check(indptr, src, u, hot, cuda, t=0.1, eps=1e-7):
+    """The kernel on the card against the plain version in float64, within
+    ``ref.error_bound`` (from csrc/softmax_aggr.cu); returns the card's
+    output and the bound's worst use."""
+    from repro_torch.kernels.softmax_aggr import ref as aggr_ref
+    from repro_torch.kernels.softmax_aggr import softmax_aggr as aggr_kernel
+
+    want = aggr_ref.softmax_aggr_ref(indptr, src, u.double(), t, eps)
+    bound = aggr_ref.error_bound(indptr, src, u, t, eps)
+    got = aggr_kernel.softmax_aggr(indptr.to(cuda), src.to(cuda), u.to(cuda), hot, t, eps).cpu()
+    err = (got.double() - want).abs()
+    assert torch.isfinite(got).all()
+    assert (err <= bound).all(), float((err / bound).max())
+    return got, float((err / bound).max())
+
+
+def rmat_csr(scale, seed):
+    g = generate.rmat(scale, 16, seed=seed)
+    return (torch.as_tensor(g.indptr.astype(np.int32)),
+            torch.as_tensor(g.indices.astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_u", [1.0, 30.0, 3000.0], ids=["u~1", "u~30", "u~3000"])
+def test_softmax_aggr_matches_plain_and_repeats(cuda, scale_u):
+    """On an RMAT graph (hubs of ~900 in-edges, rows without any), rows of
+    u of growing size (t q up to ~1e3, where exp without the row's maximum
+    would overflow), against the plain version in float64 within the
+    kernel's bound, and two launches bit for bit."""
+    from repro_torch.kernels.softmax_aggr import softmax_aggr as aggr_kernel
+
+    indptr, src = rmat_csr(12, 1)
+    gen = torch.Generator().manual_seed(2)
+    u = torch.randn(indptr.shape[0] - 1, 128, generator=gen) * scale_u
+    got, _ = aggr_check(indptr, src, u, 700, cuda)
+    before = aggr_kernel.softmax_aggr.launches
+    again = aggr_kernel.softmax_aggr(indptr.to(cuda), src.to(cuda), u.to(cuda), 700, 0.1, 1e-7)
+    torch.cuda.synchronize()
+    assert aggr_kernel.softmax_aggr.launches == before + 1
+    assert torch.equal(again.cpu(), got)
+
+
+@pytest.mark.cuda
+def test_softmax_aggr_hub_split_across_tiles(cuda):
+    """A row of 2^20 in-edges spans 1,025 warps' tiles; its partials merge
+    in tile order to within the bound of a float64 sum, bit for bit run to
+    run."""
+    from repro_torch.kernels.softmax_aggr import softmax_aggr as aggr_kernel
+
+    indptr, src = gat_hub_graph()
+    u = torch.randn(indptr.shape[0] - 1, 128, generator=torch.Generator().manual_seed(3)) * 5
+    got, worst = aggr_check(indptr, src, u, 100, cuda)
+    again = aggr_kernel.softmax_aggr(indptr.to(cuda), src.to(cuda), u.to(cuda), 100, 0.1,
+                                     1e-7).cpu()
+    assert torch.equal(again, got)
+    assert worst < 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", ["zero", "mid", "all"])
+def test_softmax_aggr_hot_size_changes_no_bit(cuda, hot):
+    """Rows below hot_size load with evict_last and the others with
+    evict_first: the tier changes the cache policy, never the values."""
+    indptr, src = rmat_csr(12, 4)
+    n = indptr.shape[0] - 1
+    u = torch.randn(n, 128, generator=torch.Generator().manual_seed(4))
+    rows = {"zero": 0, "mid": n // 2, "all": n}[hot]
+    got, _ = aggr_check(indptr, src, u, rows, cuda)
+    base, _ = aggr_check(indptr, src, u, 0, cuda)
+    assert torch.equal(got, base)
+
+
+@pytest.mark.cuda
+def test_softmax_aggr_nan_and_refusals(cuda):
+    """A NaN in a row of u makes that channel of every row that reads it
+    NaN, as the plain version; a width other than 128, int64 ids and rows
+    that are not 16-byte aligned raise."""
+    from repro_torch.kernels.softmax_aggr import ref as aggr_ref
+    from repro_torch.kernels.softmax_aggr import softmax_aggr as aggr_kernel
+
+    indptr, src = rmat_csr(10, 7)
+    n = indptr.shape[0] - 1
+    u = torch.randn(n, 128, generator=torch.Generator().manual_seed(7))
+    u[int(src[0]), 5] = float("nan")
+    want = aggr_ref.softmax_aggr_ref(indptr, src, u, 0.1, 1e-7)
+    ic, sc = indptr.to(cuda), src.to(cuda)
+    got = aggr_kernel.softmax_aggr(ic, sc, u.to(cuda), 0, 0.1, 1e-7).cpu()
+    assert torch.isnan(want).any() and torch.equal(torch.isnan(got), torch.isnan(want))
+    with pytest.raises(ValueError, match="128"):
+        aggr_kernel.softmax_aggr(ic, sc, torch.zeros(n, 64, device=cuda), 0, 0.1, 1e-7)
+    with pytest.raises(TypeError, match="int32"):
+        aggr_kernel.softmax_aggr(ic, sc.long(), u.to(cuda), 0, 0.1, 1e-7)
+    shifted = torch.zeros(n * 128 + 1, device=cuda)[1:].view(n, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        aggr_kernel.softmax_aggr(ic, sc, shifted, 0, 0.1, 1e-7)
+
+
+@pytest.mark.cuda
+def test_deepergcn_forward_on_card_matches_cpu_one_launch_a_layer(cuda):
+    """DeeperGCN at its published widths (14 layers of 128) over an RMAT
+    graph at scale 16 (2.0M edges) through ``nn.gnn.apply``'s CSR route: on
+    the card one ``softmax_aggr`` call a layer (its partition, aggregation
+    and merge kernels, and no other gather or scatter), against the CPU
+    within 1e-4 of the logits' scale (float32 sums in other orders:
+    cuBLAS's products and the kernel's tiles, over 14 layers), and both
+    against the float64 reference within 2e-5 of it."""
+    from gbench.reference import deepergcn as deepergcn_reference
+    from repro_torch.configs.deepergcn import CONFIG
+    from repro_torch.kernels.softmax_aggr import softmax_aggr as aggr_kernel
+    from repro_torch.nn import gnn
+
+    g = generate.rmat(16, 16, seed=0)
+    gen = torch.Generator().manual_seed(0)
+    params = gnn.init(gen, CONFIG, 100, device="cpu")
+    batch = {"x": torch.randn(g.num_nodes, 100, generator=gen),
+             "indptr": torch.as_tensor(g.indptr.astype(np.int32)),
+             "src": torch.as_tensor(g.indices.astype(np.int32))}
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    card_params = gnn.to_device(params, cuda)
+    with torch.no_grad():
+        want = gnn.apply(params, CONFIG, batch)
+        before = aggr_kernel.softmax_aggr.launches
+        got = gnn.apply(card_params, CONFIG, on_card)
+        torch.cuda.synchronize()
+        assert aggr_kernel.softmax_aggr.launches - before == CONFIG.n_layers
+        names = kernels_launched(lambda: gnn.apply(card_params, CONFIG, on_card))
+    aggr = [nm for nm in names if "softmax_aggr" in nm]
+    assert len(aggr) == 3 * CONFIG.n_layers
+    assert sum("softmax_aggr_kernel" in nm for nm in aggr) == CONFIG.n_layers
+    assert not any("index" in nm or "scatter" in nm or "gather" in nm for nm in names), names
+    assert torch.isfinite(got).all() and got.shape == (g.num_nodes, CONFIG.d_out)
+    ref64 = deepergcn_reference.deepergcn_forward(card_params, on_card["x"], on_card["indptr"],
+                                                  on_card["src"]).cpu()
+    scale = float(ref64.pow(2).mean().sqrt())
+    assert float((got.cpu() - want).abs().max()) < 1e-4 * scale
+    assert float((got.cpu().double() - ref64).abs().max()) < 2e-5 * scale
+    assert float((want.double() - ref64).abs().max()) < 2e-5 * scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["mind", "gin-tu", "pna", "egnn", "nequip"])
 def test_train_step_on_card_matches_cpu(cuda, arch):

@@ -36,7 +36,8 @@ def test_importing_the_port_leaves_jax_and_repro_out():
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)", re.M)
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+                         + sorted(PORT.rglob("*.cuh")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "graph_suite_torch.py", ROOT / "examples" / "train_lm_torch.py",
     ROOT / "examples" / "serve_lm_torch.py",
@@ -45,7 +46,7 @@ FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
     ROOT / "scripts" / "k1_d1_layouts.cu", ROOT / "scripts" / "k2_k3_times.py",
     ROOT / "scripts" / "k3_layouts.py", ROOT / "scripts" / "k3_layouts.cu",
     ROOT / "scripts" / "index_add_pad_runs.py", ROOT / "scripts" / "grasp_step_noise.py",
-    ROOT / "scripts" / "relax_times.py"],
+    ROOT / "scripts" / "relax_times.py", ROOT / "scripts" / "softmax_aggr_times.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
     text = path.read_text()
